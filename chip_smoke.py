@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of gpuseqalign_tpu_torch (the PyTorch/CUDA port) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput]
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (CUDA
 toolkit with nvcc; the kernels are built from the checkout's sources).
@@ -11,23 +11,36 @@ Phases, each of which makes the script exit non-zero if it fails:
                 nvcc per source, started together
   2. kernels    each kernel against its plain PyTorch version on the card,
                 all four specs, several shapes: bit-exact (int32, no
-                tolerance)
-  3. cli        the main path: bench.cli.main on the card for nw_lg, nw_ag,
-                sw_lg, sw_ag with cpu1_st_row as the reference, score hash
-                and traceback; err_step must be 0 in every TSV row
+                tolerance). mlsp_fill (one pair), mlsp_fill_batch (a bucket
+                of pairs, also held pair by pair against mlsp_fill) and
+                mlsp_tiny (cost-only, small pairs)
+  3. cli        the single-pair path: bench.cli.main on the card for nw_lg,
+                nw_ag, sw_lg, sw_ag with cpu1_st_row as the reference,
+                score hash and traceback; err_step must be 0 in every row
   4. full size  resrc/pair_release.txt (23728 x 23728) through the CLI for
                 nw_lg, then the kernel against its plain version at that
                 size for every spec, timed with CUDA events
-  5. launches   the main path's runs went through the kernel
+  5. launches   the single-pair path's runs went through its kernel
+  6. throughput the batch path: bench.throughput.main on the card for
+                resrc/pair_generated_1.txt (all four specs, pow2 buckets,
+                oracle check of 5 pairs) and 16384 synthetic pairs of
+                300-500 residues (nw_ag, sw_ag); every pair's cost and best
+                cell held against scores_batch_plain on the card, bucket by
+                bucket; each kernel's CUDA-event time per bucket and its
+                bound; mlsp_fill_batch and mlsp_tiny must both have
+                launched in the pair_generated_1 runs
 
-The line before the last is a JSON object describing every kernel; the
-last line is the contract line {"ok": true, "device": {...}}. Outputs (TSV
-files) go to logs/chip_smoke/ inside the checkout.
+With every phase run (the default), the line before the last is a JSON
+object describing every kernel and the last line is the contract line
+{"ok": true, "device": {...}}. Outputs go to logs/chip_smoke/ inside the
+checkout.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,6 +50,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RESRC = os.path.join(HERE, "resrc")
 OUT = os.path.join(HERE, "logs", "chip_smoke")
 SPECS = ("nw_lg", "nw_ag", "sw_lg", "sw_ag")
+PHASES = ("build", "kernels", "cli", "full", "throughput")
 GAPO = -11
 GAPE = {"nw_lg": 0, "sw_lg": 0, "nw_ag": -2, "sw_ag": -2}
 
@@ -52,6 +66,13 @@ OPS_PER_CELL = {"nw_lg": 4, "sw_lg": 6, "nw_ag": 9, "sw_ag": 11}
 # The reference's release pair (len23728 x len23728), bench.py's size.
 RELEASE_PAIRS = os.path.join(RESRC, "pair_release.txt")
 FULL_N = 23728
+# The batch path's runs: (name, throughput arguments, specs).
+SEQS = os.path.join(RESRC, "seq_generated.fa")
+THROUGHPUT_RUNS = (
+    ("pair_generated_1",
+     ["--seqPairPath", os.path.join(RESRC, "pair_generated_1.txt")], SPECS),
+    ("synth_16384", ["--synthPairs", "16384,300,500"], ("nw_ag", "sw_ag")),
+)
 
 
 def fail(msg: str) -> None:
@@ -94,11 +115,24 @@ def padded_inputs(torch, subst, rows, cols, th, tw, seed):
     return torch.from_numpy(y).cuda(), torch.from_numpy(x).cuda()
 
 
-def fill_args(spec, rows, cols, th, tw):
+def random_pairs(sizes, S, seed):
+    """Header-prefixed random pairs of the given residue counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(np.concatenate([[0], rng.integers(0, S, r)]).astype(np.int32),
+             np.concatenate([[0], rng.integers(0, S, c)]).astype(np.int32))
+            for r, c in sizes]
+
+
+def kind_gap(spec):
     kind, gap = spec.split("_")
+    return dict(kind=kind, gap="affine" if gap == "ag" else "linear")
+
+
+def fill_args(spec, rows, cols, th, tw):
     return dict(gapo=GAPO, gape=GAPE[spec], adjr=rows + 1, adjc=cols + 1,
-                tile_h=th, tile_w=tw, kind=kind,
-                gap="affine" if gap == "ag" else "linear")
+                tile_h=th, tile_w=tw, **kind_gap(spec))
 
 
 def max_abs_diff(torch, a, b) -> int:
@@ -124,20 +158,41 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(spec, rows_p, cols_p, th, tw, S) -> tuple:
-    """Least time for the fill: (ms, "operations"|"bytes"). Bytes: each
-    input read once, each output written once; operations: the int32
-    operations of the recurrence over every cell the fill computes."""
-    trows, tcols = rows_p // th, cols_p // tw
-    affine = spec.endswith("ag")
-    out_words = trows * (1 + cols_p) + trows * th * tcols
-    out_words *= 2 if affine else 1
-    out_words += 3 * trows * tcols if spec.startswith("sw") else 0
-    nbytes = 4 * (S * S + rows_p + cols_p + 2 + out_words)
-    ops = OPS_PER_CELL[spec] * rows_p * cols_p
+def bound(nbytes: float, ops: float) -> tuple:
+    """(ms, "operations"|"bytes"): the larger of the two least times."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def header_words(spec, rows_p, cols_p, th, tw) -> int:
+    """Words of tile headers one pair's sparse fill writes."""
+    trows, tcols = rows_p // th, cols_p // tw
+    words = trows * (1 + cols_p) + trows * th * tcols
+    words *= 2 if spec.endswith("ag") else 1
+    return words + (3 * trows * tcols if spec.startswith("sw") else 0)
+
+
+def bound_ms(spec, rows_p, cols_p, th, tw, S) -> tuple:
+    """Least time for the single-pair fill. Bytes: each input read once,
+    each output written once; operations: the int32 operations of the
+    recurrence over every cell the fill computes."""
+    nbytes = 4 * (S * S + rows_p + cols_p + 2
+                  + header_words(spec, rows_p, cols_p, th, tw))
+    return bound(nbytes, OPS_PER_CELL[spec] * rows_p * cols_p)
+
+
+def bucket_work(kernel, spec, b, rows_p, cols_p, S) -> tuple:
+    """(bytes, int32 operations) of one bucket of b pairs: inputs
+    (sequences, lengths) read once; outputs (the batched fill's headers and
+    cost/best, or the tiny fill's cost and best) written once; the
+    recurrence's operations over every padded cell the kernel computes."""
+    out_words = 4 * b
+    if kernel == "mlsp_fill_batch":
+        th, tw = math.gcd(rows_p, 128), math.gcd(cols_p, 512)
+        out_words += b * header_words(spec, rows_p, cols_p, th, tw)
+    nbytes = 4 * (S * S + b * (rows_p + cols_p + 4) + out_words)
+    return nbytes, OPS_PER_CELL[spec] * b * rows_p * cols_p
 
 
 def run_cli(main, spec, params, pair_lines, name):
@@ -152,7 +207,7 @@ def run_cli(main, spec, params, pair_lines, name):
     argv = [
         "--substPath", os.path.join(RESRC, "subst.json"),
         "--algParamPath", param_path,
-        "--seqPath", os.path.join(RESRC, "seq_generated.fa"),
+        "--seqPath", SEQS,
         "--seqPairPath", pair_path,
         "--resPath", tsv,
         "--algKind", spec, "--gapoCost", str(GAPO),
@@ -170,40 +225,11 @@ def run_cli(main, spec, params, pair_lines, name):
     return rows
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("no CUDA device is available")
-    if not os.path.isdir(os.path.join(HERE, "gpuseqalign_tpu_torch")):
-        fail("gpuseqalign_tpu_torch not found beside chip_smoke.py")
-    sys.path.insert(0, HERE)
-
-    from gpuseqalign_tpu_torch.bench.cli import main as cli_main
-    from gpuseqalign_tpu_torch.io.subst import parse_subst_file
-    from gpuseqalign_tpu_torch.ops import build, mlsp_cuda
+def check_single_kernel(torch, subst, subst_np) -> int:
+    """mlsp_fill against mlsp_fill_plain; returns the number of cases."""
+    from gpuseqalign_tpu_torch.ops import mlsp_cuda
     from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
 
-    kind = torch.cuda.get_device_name(0)
-    log(f"card: {card_line()}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"devices {torch.cuda.device_count()}")
-    times = {}
-
-    # 1. build
-    t0 = time.perf_counter()
-    build_s = build.build_all()
-    times["build"] = time.perf_counter() - t0
-    log(f"phase build: {build.sources()} in {build_s:.2f} s")
-
-    subst_np = parse_subst_file(
-        os.path.join(RESRC, "subst.json")).subst_map["blosum62"]
-    subst = torch.from_numpy(subst_np).cuda()
-    S = subst.shape[0]
-
-    # 2. kernel against its plain version, on the card
-    t0 = time.perf_counter()
-    max_err = 0
     shapes = [  # rows, cols, tile_h, tile_w
         (2000, 3000, 128, 512),
         (777, 2049, 64, 76),
@@ -223,90 +249,427 @@ def main() -> int:
             if err:
                 fail(f"kernel != plain: {spec} {rows}x{cols} tile "
                      f"{th}x{tw}, max |diff| {err}")
-    times["kernels"] = time.perf_counter() - t0
-    log(f"phase kernels: {len(SPECS) * len(shapes)} cases bit-exact in "
-        f"{times['kernels']:.1f} s")
+    return len(SPECS) * len(shapes)
 
-    # 3. the main path through the CLI, every spec
+
+def check_batch_kernels(torch, subst) -> int:
+    """mlsp_fill_batch against mlsp_fill_batch_plain (and pair by pair
+    against mlsp_fill), mlsp_tiny against scores_batch_plain; returns the
+    number of cases."""
+    from gpuseqalign_tpu_torch.ops import batch_cuda, mlsp_cuda
+    from gpuseqalign_tpu_torch.ops.batch_plain import (
+        mlsp_fill_batch_plain,
+        scores_batch_plain,
+    )
+    from gpuseqalign_tpu_torch.parallel.batch import stack_bucket
+
+    dev = torch.device("cuda")
+    S = subst.shape[0]
+    fill_buckets = [  # rows_p, cols_p, residue counts of the pairs
+        (1024, 2048, [(1024, 2048), (1, 1500), (900, 1), (1000, 1800),
+                      (513, 2047)]),
+        (1200, 1200, [(1200, 1200), (1100, 700), (1, 1000), (1050, 1)]),
+    ]
+    tiny_buckets = [
+        (200, 300, [(200, 300), (1, 1), (150, 1), (1, 250), (37, 299)]),
+        (512, 512, [(512, 512), (300, 400), (1, 1), (480, 1), (257, 511),
+                    (511, 2)] * 8),
+        (1000, 20000, [(1000, 20000), (999, 1), (1, 1), (640, 15000)]),
+    ]
+    n = 0
+    cap = batch_cuda.HEADER_CAP_WORDS
+    for spec in SPECS:
+        for k, (rows_p, cols_p, sizes) in enumerate(fill_buckets):
+            pairs = random_pairs(sizes, S, 10 + k)
+            ys, xs, adjrs, adjcs = stack_bucket(pairs, range(len(pairs)),
+                                                rows_p, cols_p, dev)
+            kw = dict(tile_h=math.gcd(rows_p, 128),
+                      tile_w=math.gcd(cols_p, 512), **kind_gap(spec))
+            args = (subst, ys, xs, GAPO, GAPE[spec], adjrs, adjcs)
+            want = mlsp_fill_batch_plain(*args, **kw)
+            # Whole bucket in one group, then in groups of two pairs.
+            pair_words = sum(want[k][0].numel() for k in
+                             ("hrows", "hcols", "frows", "ecols") if k in want)
+            for group_cap in (cap, 2 * pair_words):
+                batch_cuda.HEADER_CAP_WORDS = group_cap
+                got = batch_cuda.mlsp_fill_batch(*args, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_diff(torch, got, want)
+                if err:
+                    fail(f"mlsp_fill_batch != plain: {spec} bucket "
+                         f"{rows_p}x{cols_p} cap {group_cap}: max |diff| "
+                         f"{err}")
+            batch_cuda.HEADER_CAP_WORDS = cap
+            for p, (y, x) in enumerate(pairs):
+                one = mlsp_cuda.mlsp_fill(
+                    subst, ys[p].contiguous(), xs[p].contiguous(),
+                    GAPO, GAPE[spec], len(y), len(x), **kw)
+                for name, t in one.items():
+                    if not torch.equal(got[name][p], t):
+                        fail(f"mlsp_fill_batch != mlsp_fill: {spec} pair "
+                             f"{p} of bucket {rows_p}x{cols_p}, {name}")
+            n += 1
+        for k, (rows_p, cols_p, sizes) in enumerate(tiny_buckets):
+            pairs = random_pairs(sizes, S, 20 + k)
+            ys, xs, adjrs, adjcs = stack_bucket(pairs, range(len(pairs)),
+                                                rows_p, cols_p, dev)
+            args = (subst, ys, xs, GAPO, GAPE[spec], adjrs, adjcs)
+            want = scores_batch_plain(*args[:3], adjrs, adjcs, GAPO,
+                                      GAPE[spec], **kind_gap(spec))
+            for threads in (32, 64, 128, 256):
+                got = batch_cuda.tiny_scores(*args, threads=threads,
+                                             **kind_gap(spec))
+                torch.cuda.synchronize()
+                for name, g, w in zip(("cost", "best_i", "best_j"), got,
+                                      want):
+                    if not torch.equal(g, w):
+                        fail(f"mlsp_tiny != plain: {spec} bucket "
+                             f"{rows_p}x{cols_p} threads {threads}, {name}")
+                n += 1
+    return n
+
+
+def phase_throughput(torch, subst, S) -> dict:
+    """Drive bench.throughput.main for every run of THROUGHPUT_RUNS, then
+    hold each pair's outputs against scores_batch_plain on the card and
+    time each bucket's kernel. Returns per-run summaries."""
+    from gpuseqalign_tpu_torch.bench import throughput
+    from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+    from gpuseqalign_tpu_torch.ops import batch_cuda
+    from gpuseqalign_tpu_torch.ops.batch_plain import scores_batch_plain
+    from gpuseqalign_tpu_torch.parallel.batch import (
+        TILE_FILL_MIN_ROWS,
+        bucket_pairs,
+        bucket_scores,
+        stack_bucket,
+    )
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
+
+    dev = torch.device("cuda")
+    letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
+    os.makedirs(OUT, exist_ok=True)
+    runs = {}
+    for name, extra, specs in THROUGHPUT_RUNS:
+        if name == "pair_generated_1":
+            pairs = throughput.file_pairs(SEQS, extra[1], letters)
+        else:
+            pairs = throughput.synth_pairs(
+                *(int(v) for v in extra[1].split(",")), S)
+        t0 = time.perf_counter()
+        buckets = bucket_pairs(pairs, "pow2")
+        t_bucket = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for key, idxs in buckets.items():
+            stack_bucket(pairs, idxs, *key, dev)
+        torch.cuda.synchronize()
+        t_stack = time.perf_counter() - t0
+        log(f"phase throughput {name}: host wall ms of the engine's steps: "
+            f"bucket_pairs {t_bucket * 1e3:.3f}, stack_bucket (every "
+            f"bucket, to the card) {t_stack * 1e3:.3f}")
+        for spec in specs:
+            tag = f"{name}_{spec}"
+            out_json = os.path.join(OUT, f"throughput_{tag}.json")
+            argv = ["--seqPath", SEQS, "--substPath",
+                    os.path.join(RESRC, "subst.json"), *extra,
+                    "--algKind", spec, "--gapoCost", str(GAPO),
+                    "--gapeCost", str(GAPE[spec]), "--quantum", "pow2",
+                    "--verify", "5", "--jsonPath", out_json]
+            batch_cuda.FILL_LAUNCHES = batch_cuda.TINY_LAUNCHES = 0
+            rc = throughput.main(argv)
+            launches = {"mlsp_fill_batch": batch_cuda.FILL_LAUNCHES,
+                        "mlsp_tiny": batch_cuda.TINY_LAUNCHES}
+            if rc != 0:
+                fail(f"throughput {tag}: exit {rc}")
+            with open(out_json) as f:
+                res = json.load(f)
+            got = torch.tensor([res["costs"], res["best_i"], res["best_j"]],
+                               dtype=torch.int32)
+
+            per = {k: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, buckets=0,
+                           max_abs_err=0)
+                   for k in launches}
+            aspec = AlignSpec.from_name(spec)
+            for (rows_p, cols_p), idxs in buckets.items():
+                kernel = ("mlsp_fill_batch" if rows_p >= TILE_FILL_MIN_ROWS
+                          else "mlsp_tiny")
+                ys, xs, adjrs, adjcs = stack_bucket(pairs, idxs, rows_p,
+                                                    cols_p, dev)
+                plain = []
+                plain_ms = cuda_ms(torch, lambda: plain.append(
+                    scores_batch_plain(subst, ys, xs, adjrs, adjcs, GAPO,
+                                       GAPE[spec], **kind_gap(spec))), 1)
+                want = torch.stack(plain[0]).cpu()
+                err = int((got[:, idxs].long() - want.long()).abs().max())
+                per[kernel]["max_abs_err"] = max(per[kernel]["max_abs_err"],
+                                                 err)
+                if err:
+                    fail(f"throughput {tag}: bucket {rows_p}x{cols_p} "
+                         f"differs from scores_batch_plain by {err}")
+
+                def call():
+                    bucket_scores(aspec, subst, ys, xs, adjrs, adjcs, GAPO,
+                                  GAPE[spec])
+
+                call()
+                ms = cuda_ms(torch, call, 3)
+                nbytes, ops = bucket_work(kernel, spec, len(idxs), rows_p,
+                                          cols_p, S)
+                e = per[kernel]
+                e["ms"] += ms
+                e["plain_ms"] += plain_ms
+                e["bytes"] += nbytes
+                e["ops"] += ops
+                e["buckets"] += 1
+            if name == "pair_generated_1" and min(launches.values()) <= 0:
+                fail(f"throughput {tag}: a kernel never launched: {launches}")
+            for k, e in per.items():
+                e["launches"] = launches[k]
+                e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["ops"])
+            runs[tag] = dict(pairs_per_s=res["pairs_per_s"],
+                             gcups=res["gcups"], n_buckets=res["n_buckets"],
+                             seconds=res["seconds"], kernels=per)
+            log(f"phase throughput {tag}: {res['pairs']} pairs, "
+                f"{res['n_buckets']} buckets, {res['pairs_per_s']:.1f} "
+                f"pairs/s, {res['gcups']:.3f} GCUPS (live cells), timed "
+                f"window {res['seconds'] * 1e3:.3f} ms; every pair "
+                f"bit-exact against scores_batch_plain")
+            for k, e in per.items():
+                if e["buckets"]:
+                    log(f"  {k}: {e['buckets']} buckets, {e['launches']} "
+                        f"launches in the run, kernel {e['ms']:.3f} ms, "
+                        f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+                        f"scores_batch_plain {e['plain_ms']:.1f} ms")
+    return runs
+
+
+def time_fill_batch_plain(torch, subst, S) -> dict:
+    """mlsp_fill_batch against its own plain version on the K5 buckets of
+    pair_generated_1 (nw_ag): CUDA-event ms of both and max |diff|."""
+    from gpuseqalign_tpu_torch.bench import throughput
+    from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+    from gpuseqalign_tpu_torch.ops import batch_cuda
+    from gpuseqalign_tpu_torch.ops.batch_plain import mlsp_fill_batch_plain
+    from gpuseqalign_tpu_torch.parallel.batch import (
+        TILE_FILL_MIN_ROWS,
+        bucket_pairs,
+        stack_bucket,
+    )
+
+    spec = "nw_ag"
+    dev = torch.device("cuda")
+    letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
+    pairs = throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters)
+    ms = plain_ms = 0.0
+    err = 0
+    for (rows_p, cols_p), idxs in bucket_pairs(pairs, "pow2").items():
+        if rows_p < TILE_FILL_MIN_ROWS:
+            continue
+        ys, xs, adjrs, adjcs = stack_bucket(pairs, idxs, rows_p, cols_p, dev)
+        kw = dict(tile_h=math.gcd(rows_p, 128), tile_w=math.gcd(cols_p, 512),
+                  **kind_gap(spec))
+        args = (subst, ys, xs, GAPO, GAPE[spec], adjrs, adjcs)
+        got = batch_cuda.mlsp_fill_batch(*args, **kw)
+        ms += cuda_ms(torch, lambda: batch_cuda.mlsp_fill_batch(*args, **kw),
+                      1)
+        want = {}
+        plain_ms += cuda_ms(torch, lambda: want.update(
+            mlsp_fill_batch_plain(*args, **kw)), 1)
+        err = max(err, max_abs_diff(torch, got, want))
+        del got, want
+    if err:
+        fail(f"mlsp_fill_batch != mlsp_fill_batch_plain on pair_generated_1 "
+             f"{spec}: max |diff| {err}")
+    log(f"phase throughput: mlsp_fill_batch with headers on the "
+        f"pair_generated_1 {spec} buckets: kernel {ms:.3f} ms, "
+        f"mlsp_fill_batch_plain {plain_ms:.1f} ms, bit-exact")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+
+
+def sweep_tiny_threads(torch, subst, S) -> None:
+    """mlsp_tiny's CUDA-event time (nw_ag) against its block size, on a
+    bucket of many pairs (the synthetic run's) and one of a single wide
+    pair (pair_generated_1's 512 x 16384)."""
+    from gpuseqalign_tpu_torch.bench import throughput
+    from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+    from gpuseqalign_tpu_torch.ops import batch_cuda
+    from gpuseqalign_tpu_torch.parallel.batch import bucket_pairs, stack_bucket
+
+    spec = "nw_ag"
+    dev = torch.device("cuda")
+    letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
+    cases = [
+        (throughput.synth_pairs(16384, 300, 500, S), (512, 512)),
+        (throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters),
+         (512, 16384)),
+    ]
+    for pairs, key in cases:
+        idxs = bucket_pairs(pairs, "pow2")[key]
+        ys, xs, adjrs, adjcs = stack_bucket(pairs, idxs, *key, dev)
+        args = (subst, ys, xs, GAPO, GAPE[spec], adjrs, adjcs)
+        times = {}
+        for threads in (32, 64, 128, 256):
+            def call():
+                batch_cuda.tiny_scores(*args, threads=threads,
+                                       **kind_gap(spec))
+            call()
+            times[threads] = cuda_ms(torch, call, 3)
+        log(f"phase throughput: mlsp_tiny {spec} bucket {key[0]}x{key[1]} "
+            f"of {len(idxs)} pairs, ms by block size: "
+            + ", ".join(f"{k}: {v:.3f}" for k, v in times.items()))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    phases = set(ap.parse_args().phases.split(","))
+    if phases - set(PHASES):
+        fail(f"unknown phases {sorted(phases - set(PHASES))}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    if not os.path.isdir(os.path.join(HERE, "gpuseqalign_tpu_torch")):
+        fail("gpuseqalign_tpu_torch not found beside chip_smoke.py")
+    sys.path.insert(0, HERE)
+
+    from gpuseqalign_tpu_torch.bench.cli import main as cli_main
+    from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+    from gpuseqalign_tpu_torch.ops import build, mlsp_cuda
+    from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
+
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"devices {torch.cuda.device_count()}")
+    times = {}
+
+    # 1. build (every phase needs the kernels; always run)
     t0 = time.perf_counter()
-    with open(os.path.join(RESRC, "pair_debug.txt")) as f:
-        debug = [line.strip() for line in f if line.strip()]
-    pairs = ["len1 len1", "len31 len33", "len196 len256",
-             "len512[2:] len728[:726]"]
-    pairs += [p for p in debug if p.split()[0] in ("len1", "len2")
-              or "[" in p]
+    build_s = build.build_all()
+    times["build"] = time.perf_counter() - t0
+    log(f"phase build: {build.sources()} in {build_s:.2f} s")
+
+    subst_np = parse_subst_file(
+        os.path.join(RESRC, "subst.json")).subst_map["blosum62"]
+    subst = torch.from_numpy(subst_np).cuda()
+    S = subst.shape[0]
+
+    # 2. kernels against their plain versions, on the card
+    if "kernels" in phases:
+        t0 = time.perf_counter()
+        n1 = check_single_kernel(torch, subst, subst_np)
+        nb = check_batch_kernels(torch, subst)
+        times["kernels"] = time.perf_counter() - t0
+        log(f"phase kernels: {n1} mlsp_fill cases and {nb} batch cases "
+            f"bit-exact in {times['kernels']:.1f} s")
+
+    # 3. the single-pair path through the CLI, every spec
     params = {
         "cpu1_st_row": {},
         "tpu7_pallas_mlsp": {"tileBy": [128], "tileBx": [512]},
         "NwAlign_Gpu8_Mlsp_DiagDiag": {"tileBx": [76]},
     }
     cli_launches = {}
-    for spec in SPECS:
-        mlsp_cuda.LAUNCHES = 0
-        rows = run_cli(cli_main, spec, params, pairs, f"cli_{spec}")
-        cli_launches[spec] = mlsp_cuda.LAUNCHES
-        if cli_launches[spec] <= 0:
-            fail(f"cli {spec}: the kernel was never launched")
-        log(f"phase cli {spec}: {len(rows)} rows err_step 0, "
-            f"{cli_launches[spec]} kernel launches")
-    times["cli"] = time.perf_counter() - t0
+    if "cli" in phases:
+        t0 = time.perf_counter()
+        with open(os.path.join(RESRC, "pair_debug.txt")) as f:
+            debug = [line.strip() for line in f if line.strip()]
+        pairs = ["len1 len1", "len31 len33", "len196 len256",
+                 "len512[2:] len728[:726]"]
+        pairs += [p for p in debug if p.split()[0] in ("len1", "len2")
+                  or "[" in p]
+        for spec in SPECS:
+            mlsp_cuda.LAUNCHES = 0
+            rows = run_cli(cli_main, spec, params, pairs, f"cli_{spec}")
+            cli_launches[spec] = mlsp_cuda.LAUNCHES
+            if cli_launches[spec] <= 0:
+                fail(f"cli {spec}: the kernel was never launched")
+            log(f"phase cli {spec}: {len(rows)} rows err_step 0, "
+                f"{cli_launches[spec]} kernel launches")
+        times["cli"] = time.perf_counter() - t0
 
     # 4. full size: the release pair through the CLI (nw_lg) ...
-    t0 = time.perf_counter()
-    with open(RELEASE_PAIRS) as f:
-        release = [line.strip() for line in f if line.strip()]
-    mlsp_cuda.LAUNCHES = 0
-    rows = run_cli(cli_main, "nw_lg",
-                   {k: params[k] for k in ("cpu1_st_row", "tpu7_pallas_mlsp")},
-                   release, "release_nw_lg")
-    main_launches = mlsp_cuda.LAUNCHES
-    if main_launches <= 0:
-        fail("release nw_lg: the kernel was never launched")
-    mlsp_row = next(r for r in rows if r["alg_name"] == "tpu7_pallas_mlsp")
-    ref_row = next(r for r in rows if r["alg_name"] == "cpu1_st_row")
-    log(f"phase full-size cli nw_lg {release[0]}: cost "
-        f"{mlsp_row['align_cost']} (cpu1_st_row {ref_row['align_cost']}), "
-        f"align.calc {mlsp_row['align.calc']} ms, hash.calc "
-        f"{mlsp_row['hash.calc']} ms, trace.calc {mlsp_row['trace.calc']} "
-        f"ms, {main_launches} kernel launches")
-    times["full_cli"] = time.perf_counter() - t0
-
-    # ... and the kernel against its plain version at that size, timed.
-    t0 = time.perf_counter()
-    n, th, tw = FULL_N, 128, 512
     per_spec = {}
-    for i, spec in enumerate(SPECS):
-        y, x = padded_inputs(torch, subst_np, n, n, th, tw, 100 + i)
-        kw = fill_args(spec, n, n, th, tw)
-        mlsp_cuda.mlsp_fill(subst, y, x, **kw)  # warm-up
-        ms = cuda_ms(torch, lambda: mlsp_cuda.mlsp_fill(subst, y, x, **kw), 3)
-        got = mlsp_cuda.mlsp_fill(subst, y, x, **kw)
-        want = {}
-        plain_ms = cuda_ms(
-            torch, lambda: want.update(mlsp_fill_plain(subst, y, x, **kw)), 1)
-        err = max_abs_diff(torch, got, want)
-        if err:
-            fail(f"kernel != plain at {n}x{n} {spec}: max |diff| {err}")
-        max_err = max(max_err, err)
-        rows_p, cols_p = y.numel() - 1, x.numel() - 1
-        b_ms, b_by = bound_ms(spec, rows_p, cols_p, th, tw, S)
-        per_spec[spec] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            gcups=n * n / (ms * 1e-3) / 1e9,
-            launches_per_fill=rows_p // th + cols_p // tw - 1,
-        )
-        log(f"phase full-size {spec} {n}x{n} tile {th}x{tw}: kernel "
-            f"{ms:.3f} ms ({per_spec[spec]['gcups']:.3f} GCUPS, "
-            f"{per_spec[spec]['launches_per_fill']} launches), plain "
-            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), bit-exact")
-        del got, want
-    times["full_kernels"] = time.perf_counter() - t0
+    max_err = 0
+    main_launches = 0
+    if "full" in phases:
+        t0 = time.perf_counter()
+        with open(RELEASE_PAIRS) as f:
+            release = [line.strip() for line in f if line.strip()]
+        mlsp_cuda.LAUNCHES = 0
+        rows = run_cli(cli_main, "nw_lg",
+                       {k: params[k] for k in ("cpu1_st_row",
+                                               "tpu7_pallas_mlsp")},
+                       release, "release_nw_lg")
+        main_launches = mlsp_cuda.LAUNCHES
+        if main_launches <= 0:
+            fail("release nw_lg: the kernel was never launched")
+        mlsp_row = next(r for r in rows
+                        if r["alg_name"] == "tpu7_pallas_mlsp")
+        ref_row = next(r for r in rows if r["alg_name"] == "cpu1_st_row")
+        log(f"phase full-size cli nw_lg {release[0]}: cost "
+            f"{mlsp_row['align_cost']} (cpu1_st_row "
+            f"{ref_row['align_cost']}), align.calc {mlsp_row['align.calc']}"
+            f" ms, hash.calc {mlsp_row['hash.calc']} ms, trace.calc "
+            f"{mlsp_row['trace.calc']} ms, {main_launches} kernel launches")
+        times["full_cli"] = time.perf_counter() - t0
 
-    # 5. the main path went through the kernel
+        # ... and the kernel against its plain version at that size, timed.
+        t0 = time.perf_counter()
+        n, th, tw = FULL_N, 128, 512
+        for i, spec in enumerate(SPECS):
+            y, x = padded_inputs(torch, subst_np, n, n, th, tw, 100 + i)
+            kw = fill_args(spec, n, n, th, tw)
+            mlsp_cuda.mlsp_fill(subst, y, x, **kw)  # warm-up
+            ms = cuda_ms(torch,
+                         lambda: mlsp_cuda.mlsp_fill(subst, y, x, **kw), 3)
+            got = mlsp_cuda.mlsp_fill(subst, y, x, **kw)
+            want = {}
+            plain_ms = cuda_ms(
+                torch, lambda: want.update(mlsp_fill_plain(subst, y, x, **kw)),
+                1)
+            err = max_abs_diff(torch, got, want)
+            if err:
+                fail(f"kernel != plain at {n}x{n} {spec}: max |diff| {err}")
+            max_err = max(max_err, err)
+            rows_p, cols_p = y.numel() - 1, x.numel() - 1
+            b_ms, b_by = bound_ms(spec, rows_p, cols_p, th, tw, S)
+            per_spec[spec] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                gcups=n * n / (ms * 1e-3) / 1e9,
+                launches_per_fill=rows_p // th + cols_p // tw - 1,
+            )
+            log(f"phase full-size {spec} {n}x{n} tile {th}x{tw}: kernel "
+                f"{ms:.3f} ms ({per_spec[spec]['gcups']:.3f} GCUPS, "
+                f"{per_spec[spec]['launches_per_fill']} launches), plain "
+                f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"bit-exact")
+            del got, want
+        times["full_kernels"] = time.perf_counter() - t0
+
+    # 5. the single-pair path went through its kernel
     log(f"launches: cli {cli_launches}, full-size cli nw_lg {main_launches}")
+
+    # 6. the batch path
+    runs = {}
+    if "throughput" in phases:
+        t0 = time.perf_counter()
+        runs = phase_throughput(torch, subst, S)
+        fill_plain = time_fill_batch_plain(torch, subst, S)
+        sweep_tiny_threads(torch, subst, S)
+        times["throughput"] = time.perf_counter() - t0
+
     log("phase times s: " + json.dumps({k: round(v, 2)
                                           for k, v in times.items()}))
+    if phases != set(PHASES):
+        log(f"partial run ({sorted(phases)}): no result line")
+        return 0
     head = per_spec["nw_ag"]
+    k5 = runs["pair_generated_1_nw_ag"]["kernels"]["mlsp_fill_batch"]
+    k6 = runs["synth_16384_nw_ag"]["kernels"]["mlsp_tiny"]
     print(json.dumps({"kernels": [{
         "name": "mlsp_fill",
         "route": "cuda",
@@ -318,6 +681,30 @@ def main() -> int:
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "mlsp_fill_batch",
+        "route": "cuda",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_fill.cu",
+        "replaces": "gpuseqalign_tpu/ops/pallas_wavefront2.py:1580",
+        "launches": k5["launches"],
+        "max_abs_err": fill_plain["max_abs_err"],
+        "ms": k5["ms"],
+        "plain_ms": fill_plain["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "mlsp_tiny",
+        "route": "cuda",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_tiny.cu",
+        "replaces": "gpuseqalign_tpu/ops/pallas_tiny.py:275",
+        "launches": k6["launches"],
+        "max_abs_err": k6["max_abs_err"],
+        "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,4 @@
-from . import mlsp_cuda, mlsp_kernels, mlsp_plain
+from . import batch_cuda, batch_plain, mlsp_cuda, mlsp_kernels, mlsp_plain
 
-__all__ = ["mlsp_cuda", "mlsp_kernels", "mlsp_plain"]
+__all__ = ["batch_cuda", "batch_plain", "mlsp_cuda", "mlsp_kernels",
+           "mlsp_plain"]

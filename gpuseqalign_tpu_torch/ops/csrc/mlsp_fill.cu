@@ -1,7 +1,10 @@
 // mlsp_fill.cu — sparse (mlsp) tile-header fill for NW/SW x linear/affine.
 //
-// Replaces the TPU kernel gpuseqalign_tpu/ops/pallas_wavefront2.py::
-// pallas_mlsp_v2 (kernel body _make_kernel). It computes the same thing —
+// Replaces two TPU kernels of gpuseqalign_tpu/ops/pallas_wavefront2.py that
+// share one body (_make_kernel): pallas_mlsp_v2, one pair
+// (mlsp_fill_diag), and pallas_mlsp_batch_v2, a bucket of same-shape
+// pairs (mlsp_fill_batch_diag, _make_kernel(batch=True)). It computes the
+// same thing —
 // the DP matrix's tile headers, not the matrix — but not the TPU's layout
 // (lanes = rows, the K-chain echelon, packed substitution planes): the
 // design is the original reference's gpu7/gpu8 mlsp form.
@@ -21,6 +24,11 @@
 //     the tile's bottom row -> hrows[it+1], its right column ->
 //     hcols[it, :, jt+1], plus frows/ecols for affine and the tile's best
 //     (v, i, j) for SW. All arithmetic is int32.
+//   * The batched entry runs the same body with blockIdx.y as the pair:
+//     every array is pair-major with the single-pair layout per pair, the
+//     true lengths come from device arrays, and the thread that owns the
+//     pair's cell (adjr-1, adjc-1) writes its NW cost. One launch per tile
+//     anti-diagonal covers every pair of the bucket (gridDim.y pairs).
 //
 // What bounds it on an H100: not bytes (O(rows*cols/tile) header traffic)
 // but the serial dependency chain of the DP — each anti-diagonal step is
@@ -43,6 +51,7 @@ constexpr int kNegInf = -(1 << 30);
 constexpr int kMaxThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr size_t kSmemLimit = 48 * 1024;
+constexpr int kMaxGridY = 65535;
 
 struct Params {
   const int* subst;  // (S, S)
@@ -55,6 +64,10 @@ struct Params {
   int* tbest;        // SW: (trows * tcols, 3)
   int* scratch;      // null, or (tcols, 2 * (tw + 1)) top-row buffers
   int S, gapo, gape, adjr, adjc, th, tw, trows, tcols;
+  // Batched fill only: per-pair true lengths (npairs,) and NW costs.
+  const int* adjrs;
+  const int* adjcs;
+  int* cost;
 };
 
 int block_threads(int th) {
@@ -70,10 +83,34 @@ size_t top_words(int tw, bool affine) {
   return (affine ? 2 : 1) * ((size_t)tw + 1);
 }
 
-template <bool SW, bool AFFINE>
+// Pair b of a batched fill: every array is pair-major, and each pair's
+// block has the single-pair layout.
+__device__ Params pair_params(Params p, int b) {
+  const size_t rows_p = (size_t)p.trows * p.th;
+  const size_t cols_p = (size_t)p.tcols * p.tw;
+  const size_t hdr_row = (size_t)p.trows * (cols_p + 1);
+  const size_t hdr_col = rows_p * p.tcols;
+  p.y += b * (rows_p + 1);
+  p.x += b * (cols_p + 1);
+  p.hrows += b * hdr_row;
+  p.hcols += b * hdr_col;
+  if (p.frows) {
+    p.frows += b * hdr_row;
+    p.ecols += b * hdr_col;
+  }
+  if (p.tbest) p.tbest += b * 3 * (size_t)p.trows * p.tcols;
+  if (p.scratch) p.scratch += b * 2 * (size_t)p.tcols * (p.tw + 1);
+  p.cost += b;
+  p.adjr = p.adjrs[b];
+  p.adjc = p.adjcs[b];
+  return p;
+}
+
+template <bool SW, bool AFFINE, bool BATCH>
 __global__ void __launch_bounds__(kMaxThreads)
-mlsp_tile_kernel(Params p, int d, int it_lo) {
+mlsp_tile_kernel(Params args, int d, int it_lo) {
   extern __shared__ int smem[];
+  const Params p = BATCH ? pair_params(args, blockIdx.y) : args;
   const int it = it_lo + blockIdx.x;
   const int jt = d - it;
   const int th = p.th, tw = p.tw;
@@ -148,6 +185,7 @@ mlsp_tile_kernel(Params p, int d, int it_lo) {
         } else {
           h = max(diag + sc, max(up_h, h_left) + p.gapo);
         }
+        if (BATCH && !SW && gi == p.adjr - 1 && gj == p.adjc - 1) *p.cost = h;
         if (SW) {
           h = max(h, 0);
           if (h > bv && gi < p.adjr && gj < p.adjc) {
@@ -207,16 +245,29 @@ mlsp_tile_kernel(Params p, int d, int it_lo) {
   }
 }
 
-template <bool SW, bool AFFINE>
-int launch(const Params& p, int d, cudaStream_t stream) {
+template <bool SW, bool AFFINE, bool BATCH>
+int launch(const Params& p, int d, int npairs, cudaStream_t stream) {
   const int it_lo = std::max(0, d - p.tcols + 1);
   const int it_hi = std::min(d, p.trows - 1);
   const int nt = block_threads(p.th);
   size_t words = fixed_smem_words(p.S, nt, SW);
   if (!p.scratch) words += top_words(p.tw, AFFINE);
-  mlsp_tile_kernel<SW, AFFINE>
-      <<<it_hi - it_lo + 1, nt, words * sizeof(int), stream>>>(p, d, it_lo);
+  const dim3 grid(it_hi - it_lo + 1, npairs);
+  mlsp_tile_kernel<SW, AFFINE, BATCH>
+      <<<grid, nt, words * sizeof(int), stream>>>(p, d, it_lo);
   return (int)cudaGetLastError();
+}
+
+template <bool BATCH>
+int dispatch(int sw, int affine, const Params& p, int d, int npairs,
+             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sw) {
+    return affine ? launch<true, true, BATCH>(p, d, npairs, st)
+                  : launch<true, false, BATCH>(p, d, npairs, st);
+  }
+  return affine ? launch<false, true, BATCH>(p, d, npairs, st)
+                : launch<false, false, BATCH>(p, d, npairs, st);
 }
 
 }  // namespace
@@ -233,6 +284,15 @@ long long mlsp_fill_scratch_words(int S, int th, int tw, int tcols, int sw,
   return (long long)tcols * 2 * ((long long)tw + 1);
 }
 
+// Whether the shape arguments are ones the fill takes.
+static bool valid_args(int sw, int affine, int S, int th, int tw, int trows,
+                       int tcols, int d, const int* scratch) {
+  if (th < 1 || tw < 1 || d < 0 || d > trows + tcols - 2 ||
+      (size_t)S * S * sizeof(int) > kSmemLimit / 2)
+    return false;
+  return scratch || mlsp_fill_scratch_words(S, th, tw, tcols, sw, affine) == 0;
+}
+
 // Launch the tiles of anti-diagonal d. Returns cudaGetLastError() after
 // the launch (0 on success); the launch itself is asynchronous.
 int mlsp_fill_diag(int sw, int affine, const int* subst, int S, const int* y,
@@ -240,18 +300,32 @@ int mlsp_fill_diag(int sw, int affine, const int* subst, int S, const int* y,
                    int th, int tw, int trows, int tcols, int d, int* hrows,
                    int* hcols, int* frows, int* ecols, int* tbest,
                    int* scratch, void* stream) {
-  if (th < 1 || tw < 1 || d < 0 || d > trows + tcols - 2 ||
-      (size_t)S * S * sizeof(int) > kSmemLimit / 2)
-    return (int)cudaErrorInvalidValue;
-  if (!scratch && mlsp_fill_scratch_words(S, th, tw, tcols, sw, affine) > 0)
+  if (!valid_args(sw, affine, S, th, tw, trows, tcols, d, scratch))
     return (int)cudaErrorInvalidValue;
   Params p{subst, y,     x,   hrows, hcols, frows, ecols, tbest, scratch,
            S,     gapo,  gape, adjr, adjc,  th,    tw,    trows, tcols};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (sw) {
-    return affine ? launch<true, true>(p, d, st) : launch<true, false>(p, d, st);
-  }
-  return affine ? launch<false, true>(p, d, st) : launch<false, false>(p, d, st);
+  return dispatch<false>(sw, affine, p, d, 1, stream);
+}
+
+// The batched fill: the tiles of anti-diagonal d of every pair of a bucket
+// of npairs same-shape pairs. ys (npairs, 1 + rows_p), xs (npairs,
+// 1 + cols_p), adjrs/adjcs/cost (npairs,); each output and the scratch
+// hold npairs single-pair blocks back to back. For a pair with
+// adjr >= 2 and adjc >= 2 the NW cost H[adjr-1, adjc-1] is written to
+// cost[pair]; cost is not written for SW or for a shorter pair.
+int mlsp_fill_batch_diag(int sw, int affine, const int* subst, int S,
+                         const int* ys, const int* xs, int gapo, int gape,
+                         const int* adjrs, const int* adjcs, int th, int tw,
+                         int trows, int tcols, int d, int npairs, int* hrows,
+                         int* hcols, int* frows, int* ecols, int* tbest,
+                         int* cost, int* scratch, void* stream) {
+  if (npairs < 1 || npairs > kMaxGridY ||
+      !valid_args(sw, affine, S, th, tw, trows, tcols, d, scratch))
+    return (int)cudaErrorInvalidValue;
+  Params p{subst, ys,   xs,   hrows, hcols, frows, ecols, tbest, scratch,
+           S,     gapo, gape, 0,     0,     th,    tw,    trows, tcols,
+           adjrs, adjcs, cost};
+  return dispatch<true>(sw, affine, p, d, npairs, stream);
 }
 
 }  // extern "C"

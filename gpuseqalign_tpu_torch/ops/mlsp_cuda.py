@@ -4,7 +4,9 @@
 returns the same outputs. On a CUDA tensor it launches the kernel of
 ``ops/csrc/mlsp_fill.cu`` (one launch per tile anti-diagonal, on the
 current stream, no host sync between launches) or raises; it uses the
-plain version only for tensors that lie on the CPU.
+plain version only for tensors that lie on the CPU. ``load_lib``,
+``alloc_headers`` and ``tile_best`` serve the batched entry of the same
+library too (``batch_cuda.mlsp_fill_batch``).
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main path
 went through the kernel.
@@ -25,7 +27,8 @@ LAUNCHES = 0
 _lib = None
 
 
-def _load() -> ctypes.CDLL:
+def load_lib() -> ctypes.CDLL:
+    """The library of ``ops/csrc/mlsp_fill.cu``, built on first use."""
     global _lib
     if _lib is None:
         from .build import load
@@ -42,8 +45,57 @@ def _load() -> ctypes.CDLL:
             p,                         # scratch, stream
         ]
         lib.mlsp_fill_diag.restype = ctypes.c_int
+        lib.mlsp_fill_batch_diag.argtypes = [
+            i, i, p, i, p, p,          # sw, affine, subst, S, ys, xs
+            i, i, p, p,                # gapo, gape, adjrs, adjcs
+            i, i, i, i, i, i,          # th, tw, trows, tcols, d, npairs
+            p, p, p, p, p, p,          # hrows, hcols, frows, ecols, tbest,
+            p, p,                      # cost, scratch, stream
+        ]
+        lib.mlsp_fill_batch_diag.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def alloc_headers(lead: tuple, rows_p: int, cols_p: int, tile_h: int,
+                  tile_w: int, gapo: int, gape: int, kind: str, gap: str,
+                  dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The fill's header outputs (``mlsp_plain`` layout) for a leading
+    shape ``lead`` of pairs (``()`` for one), with the analytic edge
+    written: header row 0 and column 0. Everything else is the kernel's."""
+    trows, tcols = rows_p // tile_h, cols_p // tile_w
+    width = cols_p + 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    hrows = torch.empty((*lead, trows, width), **i32)
+    hcols = torch.empty((*lead, trows, tile_h, tcols), **i32)
+    hrows[..., 0, :] = edge_row(width, gapo, gape, kind, gap, dev)
+    hrows[..., 1:, 0] = edge_col(torch.arange(1, trows, **i32) * tile_h,
+                                 gapo, gape, kind, gap)
+    hcols[..., 0] = edge_col(
+        torch.arange(1, rows_p + 1, **i32).view(trows, tile_h),
+        gapo, gape, kind, gap)
+    out = {"hrows": hrows, "hcols": hcols}
+    if gap == "affine":
+        frows = torch.empty((*lead, trows, width), **i32)
+        ecols = torch.empty((*lead, trows, tile_h, tcols), **i32)
+        frows[..., 0, :] = NEG_INF_I32
+        frows[..., 1:, 0] = NEG_INF_I32
+        ecols[..., 0] = NEG_INF_I32
+        out["frows"], out["ecols"] = frows, ecols
+    return out
+
+
+def tile_best(tbest: torch.Tensor, width: int) -> torch.Tensor:
+    """Per pair, the row-major first maximum over its tiles' SW bests: the
+    largest value, then the smallest i, then the smallest j; (0, 0, 0) if
+    nothing is > 0. tbest (B, tiles, 3) -> (B, 3)."""
+    v = tbest[:, :, 0]
+    key = tbest[:, :, 1].long() * width + tbest[:, :, 2].long()
+    key = torch.where(v == v.amax(1, keepdim=True), key,
+                      torch.iinfo(torch.int64).max)
+    best = tbest.gather(1, key.argmin(1).view(-1, 1, 1).expand(-1, 1, 3))
+    best = best[:, 0]
+    return torch.where(best[:, :1] > 0, best, 0)
 
 
 def _check(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
@@ -83,7 +135,7 @@ def mlsp_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device: {y.device}")
 
-    lib = _load()
+    lib = load_lib()
     dev = y.device
     is_sw = kind == "sw"
     affine = gap == "affine"
@@ -92,25 +144,11 @@ def mlsp_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     width = cols_p + 1
     i32 = dict(dtype=torch.int32, device=dev)
 
-    # The analytic edge: header row 0 and column 0. Everything else is
-    # written by the kernel.
-    hrows = torch.empty((trows, width), **i32)
-    hcols = torch.empty((trows, tile_h, tcols), **i32)
-    hrows[0] = edge_row(width, gapo, gape, kind, gap, dev)
-    hrows[1:, 0] = edge_col(torch.arange(1, trows, **i32) * tile_h,
-                            gapo, gape, kind, gap)
-    hcols[:, :, 0] = edge_col(
-        torch.arange(1, rows_p + 1, **i32).view(trows, tile_h),
-        gapo, gape, kind, gap)
-    out = {"hrows": hrows, "hcols": hcols}
-    frows = ecols = tbest = scratch = None
-    if affine:
-        frows = torch.empty((trows, width), **i32)
-        ecols = torch.empty((trows, tile_h, tcols), **i32)
-        frows[0] = NEG_INF_I32
-        frows[1:, 0] = NEG_INF_I32
-        ecols[:, :, 0] = NEG_INF_I32
-        out["frows"], out["ecols"] = frows, ecols
+    out = alloc_headers((), rows_p, cols_p, tile_h, tile_w, gapo, gape,
+                        kind, gap, dev)
+    hrows, hcols = out["hrows"], out["hcols"]
+    frows, ecols = out.get("frows"), out.get("ecols")
+    tbest = scratch = None
     if is_sw:
         tbest = torch.empty((trows * tcols, 3), **i32)
     n_scratch = lib.mlsp_fill_scratch_words(
@@ -139,11 +177,5 @@ def mlsp_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
             LAUNCHES += 1
 
     if is_sw:
-        # Row-major first maximum over the per-tile bests: largest value,
-        # then smallest i, then smallest j; (0, 0, 0) if nothing is > 0.
-        v = tbest[:, 0]
-        key = tbest[:, 1].long() * width + tbest[:, 2].long()
-        key = torch.where(v == v.max(), key, torch.iinfo(torch.int64).max)
-        best = tbest.index_select(0, key.argmin().view(1))[0]
-        out["best"] = torch.where(best[0] > 0, best, 0)
+        out["best"] = tile_best(tbest.view(1, -1, 3), width)[0]
     return out

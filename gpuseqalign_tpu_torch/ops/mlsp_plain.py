@@ -21,6 +21,8 @@ Output contract, shared with the kernel (``ops/mlsp_cuda.py``), for
                                  first maximum over live cells
                                  (i < adjr, j < adjc); (0, 0, 0) if no
                                  cell is > 0
+  cost   ()                      only with capture_cost: NW the cell
+                                 (adjr-1, adjc-1), SW best[0]
 
 Padded cells are computed with pad letter 0 through the same recurrence,
 so the padded region of the headers is part of the contract.
@@ -60,7 +62,8 @@ def edge_col(i: torch.Tensor, gapo: int, gape: int, kind: str,
 
 def mlsp_fill_plain(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                     gapo: int, gape: int, adjr: int, adjc: int, *,
-                    tile_h: int, tile_w: int, kind: str, gap: str
+                    tile_h: int, tile_w: int, kind: str, gap: str,
+                    capture_cost: bool = False
                     ) -> Dict[str, torch.Tensor]:
     """Sparse fill of the zero-padded, header-prefixed ``y`` (1+rows_p,)
     against ``x`` (1+cols_p,), int32, for any spec; see the module
@@ -86,6 +89,7 @@ def mlsp_fill_plain(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     live_cols = offs < adjc
 
     hprev = edge_row(width, gapo, gape, kind, gap, dev)
+    cost = hprev[adjc - 1]
     fprev = torch.full((width,), NEG_INF_I32, dtype=torch.int32, device=dev)
     hrows, frows, hcols, ecols, rmax, rarg = [], [], [], [], [], []
     for b in range(trows):
@@ -116,6 +120,8 @@ def mlsp_fill_plain(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                 masked = torch.where(live_cols, hrow, 0)
                 rmax.append(masked.max())
                 rarg.append(masked.argmax())
+            elif i == adjr - 1:
+                cost = hrow[adjc - 1]
             hcols.append(hrow[col_ids])
             if affine:
                 ecols.append(erow[col_ids])
@@ -136,4 +142,7 @@ def mlsp_fill_plain(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
         bj = torch.stack(rarg).gather(0, k)
         best = torch.cat([bv, k + 1, bj]).to(torch.int32)
         out["best"] = torch.where(bv > 0, best, 0)
+        cost = out["best"][0]
+    if capture_cost:
+        out["cost"] = cost
     return out

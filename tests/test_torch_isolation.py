@@ -64,8 +64,9 @@ print(json.dumps({"mods": mods, "loaded": sorted(sys.modules)}))
         text=True, timeout=120, check=True,
     )
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "gpuseqalign_tpu_torch.ops.mlsp_cuda" in got["mods"]
-    assert "gpuseqalign_tpu_torch.bench.cli" in got["mods"]
+    for mod in ("ops.mlsp_cuda", "bench.cli", "parallel.batch",
+                "ops.batch_cuda", "bench.throughput"):
+        assert f"gpuseqalign_tpu_torch.{mod}" in got["mods"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
 
