@@ -26,9 +26,14 @@ Phases, each of which makes the script exit non-zero if it fails:
                 oracle check of 5 pairs) and 16384 synthetic pairs of
                 300-500 residues (nw_ag, sw_ag); every pair's cost and best
                 cell held against scores_batch_plain on the card, bucket by
-                bucket; each kernel's CUDA-event time per bucket and its
-                bound; mlsp_fill_batch and mlsp_tiny must both have
-                launched in the pair_generated_1 runs
+                bucket; pairs/s over the median of 5 windows, with every
+                window; each kernel's CUDA-event time per bucket and its
+                bound over the live cells; mlsp_fill_batch and mlsp_tiny
+                must both have launched in the pair_generated_1 runs. Then
+                mlsp_fill_batch timed against its plain version, mlsp_tiny's
+                block-size sweep over bucket sizes, and a torch.profiler
+                trace of three synth_16384 nw_ag windows (device idle share,
+                host time of each step of the engine)
 
 With every phase run (the default), the line before the last is a JSON
 object describing every kernel and the last line is the contract line
@@ -182,17 +187,28 @@ def bound_ms(spec, rows_p, cols_p, th, tw, S) -> tuple:
     return bound(nbytes, OPS_PER_CELL[spec] * rows_p * cols_p)
 
 
-def bucket_work(kernel, spec, b, rows_p, cols_p, S) -> tuple:
-    """(bytes, int32 operations) of one bucket of b pairs: inputs
-    (sequences, lengths) read once; outputs (the batched fill's headers and
-    cost/best, or the tiny fill's cost and best) written once; the
-    recurrence's operations over every padded cell the kernel computes."""
+def live_cells(pairs, idxs) -> int:
+    """Cells of the pairs' own DP matrices, sum of (adjr-1)(adjc-1)."""
+    return sum((len(pairs[k][0]) - 1) * (len(pairs[k][1]) - 1) for k in idxs)
+
+
+def bucket_work(spec, pairs, idxs, rows_p, cols_p, S, headers=False
+                ) -> tuple:
+    """(bytes, int32 operations) of one call on a bucket: inputs
+    (sequences, lengths) read once; outputs written once: cost and best,
+    plus the tile headers of every pair when the call returns them.
+    Operations: the recurrence over the cells the outputs need, the live
+    cells for cost and best, every padded cell for the headers (their
+    padded region is part of their layout)."""
+    b = len(idxs)
     out_words = 4 * b
-    if kernel == "mlsp_fill_batch":
+    cells = live_cells(pairs, idxs)
+    if headers:
         th, tw = math.gcd(rows_p, 128), math.gcd(cols_p, 512)
         out_words += b * header_words(spec, rows_p, cols_p, th, tw)
+        cells = b * rows_p * cols_p
     nbytes = 4 * (S * S + b * (rows_p + cols_p + 4) + out_words)
-    return nbytes, OPS_PER_CELL[spec] * b * rows_p * cols_p
+    return nbytes, OPS_PER_CELL[spec] * cells
 
 
 def run_cli(main, spec, params, pair_lines, name):
@@ -292,7 +308,7 @@ def check_batch_kernels(torch, subst) -> int:
                              ("hrows", "hcols", "frows", "ecols") if k in want)
             for group_cap in (cap, 2 * pair_words):
                 batch_cuda.HEADER_CAP_WORDS = group_cap
-                got = batch_cuda.mlsp_fill_batch(*args, **kw)
+                got = batch_cuda.mlsp_fill_batch(*args, headers=True, **kw)
                 torch.cuda.synchronize()
                 err = max_abs_diff(torch, got, want)
                 if err:
@@ -317,7 +333,7 @@ def check_batch_kernels(torch, subst) -> int:
             want = scores_batch_plain(*args[:3], adjrs, adjcs, GAPO,
                                       GAPE[spec], **kind_gap(spec))
             for threads in (32, 64, 128, 256):
-                got = batch_cuda.tiny_scores(*args, threads=threads,
+                got = batch_cuda.tiny_scores(*args, _threads=threads,
                                              **kind_gap(spec))
                 torch.cuda.synchronize()
                 for name, g, w in zip(("cost", "best_i", "best_j"), got,
@@ -373,7 +389,8 @@ def phase_throughput(torch, subst, S) -> dict:
                     os.path.join(RESRC, "subst.json"), *extra,
                     "--algKind", spec, "--gapoCost", str(GAPO),
                     "--gapeCost", str(GAPE[spec]), "--quantum", "pow2",
-                    "--verify", "5", "--jsonPath", out_json]
+                    "--verify", "5", "--repeat", "5",
+                    "--jsonPath", out_json]
             batch_cuda.FILL_LAUNCHES = batch_cuda.TINY_LAUNCHES = 0
             rc = throughput.main(argv)
             launches = {"mlsp_fill_batch": batch_cuda.FILL_LAUNCHES,
@@ -385,8 +402,8 @@ def phase_throughput(torch, subst, S) -> dict:
             got = torch.tensor([res["costs"], res["best_i"], res["best_j"]],
                                dtype=torch.int32)
 
-            per = {k: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, buckets=0,
-                           max_abs_err=0)
+            per = {k: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0,
+                           padded_ops=0, buckets=0, max_abs_err=0)
                    for k in launches}
             aspec = AlignSpec.from_name(spec)
             for (rows_p, cols_p), idxs in buckets.items():
@@ -412,39 +429,49 @@ def phase_throughput(torch, subst, S) -> dict:
 
                 call()
                 ms = cuda_ms(torch, call, 3)
-                nbytes, ops = bucket_work(kernel, spec, len(idxs), rows_p,
-                                          cols_p, S)
+                nbytes, ops = bucket_work(spec, pairs, idxs, rows_p, cols_p,
+                                          S)
                 e = per[kernel]
                 e["ms"] += ms
                 e["plain_ms"] += plain_ms
                 e["bytes"] += nbytes
                 e["ops"] += ops
+                e["padded_ops"] += OPS_PER_CELL[spec] * len(idxs) * rows_p \
+                    * cols_p
                 e["buckets"] += 1
             if name == "pair_generated_1" and min(launches.values()) <= 0:
                 fail(f"throughput {tag}: a kernel never launched: {launches}")
             for k, e in per.items():
                 e["launches"] = launches[k]
                 e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["ops"])
+                e["padded_bound_ms"] = bound(e["bytes"], e["padded_ops"])[0]
             runs[tag] = dict(pairs_per_s=res["pairs_per_s"],
                              gcups=res["gcups"], n_buckets=res["n_buckets"],
                              seconds=res["seconds"], kernels=per)
             log(f"phase throughput {tag}: {res['pairs']} pairs, "
                 f"{res['n_buckets']} buckets, {res['pairs_per_s']:.1f} "
-                f"pairs/s, {res['gcups']:.3f} GCUPS (live cells), timed "
-                f"window {res['seconds'] * 1e3:.3f} ms; every pair "
-                f"bit-exact against scores_batch_plain")
+                f"pairs/s, {res['gcups']:.3f} GCUPS (live cells) over the "
+                f"median window {res['seconds'] * 1e3:.3f} ms (best "
+                f"{res['seconds_best'] * 1e3:.3f}; windows "
+                + ", ".join(f"{v * 1e3:.3f}" for v in res["seconds_all"])
+                + " ms); every pair bit-exact against scores_batch_plain")
             for k, e in per.items():
                 if e["buckets"]:
                     log(f"  {k}: {e['buckets']} buckets, {e['launches']} "
                         f"launches in the run, kernel {e['ms']:.3f} ms, "
-                        f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-                        f"scores_batch_plain {e['plain_ms']:.1f} ms")
+                        f"bound over live cells {e['bound_ms']:.4f} ms "
+                        f"({e['bound_by']}; over padded cells "
+                        f"{e['padded_bound_ms']:.4f} ms), scores_batch_plain "
+                        f"{e['plain_ms']:.1f} ms")
     return runs
 
 
-def time_fill_batch_plain(torch, subst, S) -> dict:
-    """mlsp_fill_batch against its own plain version on the K5 buckets of
-    pair_generated_1 (nw_ag): CUDA-event ms of both and max |diff|."""
+def time_fill_batch(torch, subst, S) -> dict:
+    """mlsp_fill_batch on the K5 buckets of pair_generated_1 (nw_ag), held
+    against mlsp_fill_batch_plain on the same inputs: CUDA-event ms of the
+    engine's cost-only call and of the call that also returns the headers
+    (mean of 3 after a warm-up), of the plain version (one call), max
+    |diff| over every output, and each call's bound."""
     from gpuseqalign_tpu_torch.bench import throughput
     from gpuseqalign_tpu_torch.io.subst import parse_subst_file
     from gpuseqalign_tpu_torch.ops import batch_cuda
@@ -459,8 +486,8 @@ def time_fill_batch_plain(torch, subst, S) -> dict:
     dev = torch.device("cuda")
     letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
     pairs = throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters)
-    ms = plain_ms = 0.0
-    err = 0
+    r = dict(ms=0.0, headers_ms=0.0, plain_ms=0.0, max_abs_err=0)
+    work = [0, 0, 0, 0]  # bytes, ops: cost only; bytes, ops: with headers
     for (rows_p, cols_p), idxs in bucket_pairs(pairs, "pow2").items():
         if rows_p < TILE_FILL_MIN_ROWS:
             continue
@@ -468,27 +495,40 @@ def time_fill_batch_plain(torch, subst, S) -> dict:
         kw = dict(tile_h=math.gcd(rows_p, 128), tile_w=math.gcd(cols_p, 512),
                   **kind_gap(spec))
         args = (subst, ys, xs, GAPO, GAPE[spec], adjrs, adjcs)
-        got = batch_cuda.mlsp_fill_batch(*args, **kw)
-        ms += cuda_ms(torch, lambda: batch_cuda.mlsp_fill_batch(*args, **kw),
-                      1)
         want = {}
-        plain_ms += cuda_ms(torch, lambda: want.update(
+        r["plain_ms"] += cuda_ms(torch, lambda: want.update(
             mlsp_fill_batch_plain(*args, **kw)), 1)
-        err = max(err, max_abs_diff(torch, got, want))
+        for key, headers in (("ms", False), ("headers_ms", True)):
+            got = batch_cuda.mlsp_fill_batch(*args, headers=headers, **kw)
+            r[key] += cuda_ms(torch, lambda: batch_cuda.mlsp_fill_batch(
+                *args, headers=headers, **kw), 3)
+            r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(
+                torch, got, {k: want[k] for k in got}))
+            w = bucket_work(spec, pairs, idxs, rows_p, cols_p, S, headers)
+            k = 2 if headers else 0
+            work[k] += w[0]
+            work[k + 1] += w[1]
         del got, want
-    if err:
+    if r["max_abs_err"]:
         fail(f"mlsp_fill_batch != mlsp_fill_batch_plain on pair_generated_1 "
-             f"{spec}: max |diff| {err}")
-    log(f"phase throughput: mlsp_fill_batch with headers on the "
-        f"pair_generated_1 {spec} buckets: kernel {ms:.3f} ms, "
-        f"mlsp_fill_batch_plain {plain_ms:.1f} ms, bit-exact")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+             f"{spec}: max |diff| {r['max_abs_err']}")
+    r["bound_ms"], r["bound_by"] = bound(work[0], work[1])
+    r["headers_bound_ms"], by = bound(work[2], work[3])
+    log(f"phase throughput: mlsp_fill_batch on the pair_generated_1 {spec} "
+        f"K5 buckets, bit-exact against mlsp_fill_batch_plain "
+        f"({r['plain_ms']:.1f} ms): cost only {r['ms']:.3f} ms (bound over "
+        f"live cells {r['bound_ms']:.4f} ms, {r['bound_by']}), with headers "
+        f"{r['headers_ms']:.3f} ms (bound over padded cells "
+        f"{r['headers_bound_ms']:.4f} ms, {by})")
+    return r
 
 
 def sweep_tiny_threads(torch, subst, S) -> None:
-    """mlsp_tiny's CUDA-event time (nw_ag) against its block size, on a
-    bucket of many pairs (the synthetic run's) and one of a single wide
-    pair (pair_generated_1's 512 x 16384)."""
+    """mlsp_tiny's CUDA-event time (nw_ag, mean of 3) against its block
+    size, on the first n pairs of the synthetic run's 512 x 512 bucket for
+    n from one pair to 16384 (0.01 to 124 pairs per SM), and on the one
+    wide pair of pair_generated_1's 512 x 16384 bucket, beside the block
+    size the wrapper picks."""
     from gpuseqalign_tpu_torch.bench import throughput
     from gpuseqalign_tpu_torch.io.subst import parse_subst_file
     from gpuseqalign_tpu_torch.ops import batch_cuda
@@ -496,26 +536,103 @@ def sweep_tiny_threads(torch, subst, S) -> None:
 
     spec = "nw_ag"
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
-    cases = [
-        (throughput.synth_pairs(16384, 300, 500, S), (512, 512)),
-        (throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters),
-         (512, 16384)),
-    ]
-    for pairs, key in cases:
-        idxs = bucket_pairs(pairs, "pow2")[key]
+    synth = throughput.synth_pairs(16384, 300, 500, S)
+    synth_idxs = bucket_pairs(synth, "pow2")[(512, 512)]
+    wide = throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters)
+    cases = [(synth, synth_idxs[:n], (512, 512))
+             for n in (1, 33, 132, 264, 528, 1056, 2112, 4224, 16384)]
+    cases.append((wide, bucket_pairs(wide, "pow2")[(512, 16384)],
+                  (512, 16384)))
+    for pairs, idxs, key in cases:
         ys, xs, adjrs, adjcs = stack_bucket(pairs, idxs, *key, dev)
         args = (subst, ys, xs, GAPO, GAPE[spec], adjrs, adjcs)
         times = {}
-        for threads in (32, 64, 128, 256):
+        for threads in (None, 32, 64, 128, 256):
             def call():
-                batch_cuda.tiny_scores(*args, threads=threads,
+                batch_cuda.tiny_scores(*args, _threads=threads,
                                        **kind_gap(spec))
             call()
             times[threads] = cuda_ms(torch, call, 3)
         log(f"phase throughput: mlsp_tiny {spec} bucket {key[0]}x{key[1]} "
-            f"of {len(idxs)} pairs, ms by block size: "
-            + ", ".join(f"{k}: {v:.3f}" for k, v in times.items()))
+            f"of {len(idxs)} pairs ({len(idxs) / sms:.2f} per SM), ms by "
+            f"block size: "
+            + ", ".join(f"{k}: {v:.4f}" for k, v in times.items()
+                        if k is not None)
+            + f"; the wrapper's pick: {times[None]:.4f}")
+
+
+def _union_ms(intervals, lo, hi) -> float:
+    """Length in ms of the union of (start, end) microsecond intervals
+    clipped to [lo, hi]."""
+    total, end = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            total += b - a
+            end = b
+    return total / 1e3
+
+
+def trace_synth_windows(torch, subst_np, S, n_windows=3) -> list:
+    """torch.profiler trace of n_windows of align_pairs_batched on the
+    synth_16384 nw_ag pairs, each as throughput.main times it (a call and
+    a synchronise). Per window: its length, the device's busy time (the
+    union of kernels, copies and sets) and idle share, K6's device time,
+    and the host time of each ``batch.*`` span of the engine."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gpuseqalign_tpu_torch.bench import throughput
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
+    from gpuseqalign_tpu_torch.parallel import align_pairs_batched
+
+    spec = "nw_ag"
+    pairs = throughput.synth_pairs(16384, 300, 500, S)
+
+    def window():
+        align_pairs_batched(AlignSpec.from_name(spec), subst_np, pairs, GAPO,
+                            GAPE[spec], quantum="pow2")
+        torch.cuda.synchronize()
+
+    window()  # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_windows):
+            with record_function("window"):
+                window()
+    path = os.path.join(OUT, "trace_synth_16384_nw_ag.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+               e["name"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    out = []
+    for w in sorted((e for e in spans if e["name"] == "window"),
+                    key=lambda e: float(e["ts"])):
+        lo, hi = float(w["ts"]), float(w["ts"]) + float(w["dur"])
+        inside = [(a, b, n) for a, b, n in device if a < hi and b > lo]
+        busy = _union_ms([(a, b) for a, b, _ in inside], lo, hi)
+        k6 = _union_ms([(a, b) for a, b, n in inside if "mlsp_tiny" in n],
+                       lo, hi)
+        host = {}
+        for e in spans:
+            if (e["name"].startswith("batch.") and lo <= float(e["ts"])
+                    and float(e["ts"]) < hi):
+                host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
+        r = dict(window_ms=(hi - lo) / 1e3, device_busy_ms=busy,
+                 idle_share=1 - busy / ((hi - lo) / 1e3) if hi > lo else None,
+                 k6_ms=k6, device_events=len(inside), host_ms=host)
+        out.append(r)
+        log("phase throughput: traced synth_16384 nw_ag window: "
+            + json.dumps(r))
+    if not device:
+        log("phase throughput: the trace holds no device events: device "
+            "busy time and idle share not measured")
+    return out
 
 
 def main() -> int:
@@ -658,8 +775,9 @@ def main() -> int:
     if "throughput" in phases:
         t0 = time.perf_counter()
         runs = phase_throughput(torch, subst, S)
-        fill_plain = time_fill_batch_plain(torch, subst, S)
+        fill = time_fill_batch(torch, subst, S)
         sweep_tiny_threads(torch, subst, S)
+        trace_synth_windows(torch, subst_np, S)
         times["throughput"] = time.perf_counter() - t0
 
     log("phase times s: " + json.dumps({k: round(v, 2)
@@ -688,11 +806,11 @@ def main() -> int:
         "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_fill.cu",
         "replaces": "gpuseqalign_tpu/ops/pallas_wavefront2.py:1580",
         "launches": k5["launches"],
-        "max_abs_err": fill_plain["max_abs_err"],
-        "ms": k5["ms"],
-        "plain_ms": fill_plain["plain_ms"],
-        "bound_ms": k5["bound_ms"],
-        "bound_by": k5["bound_by"],
+        "max_abs_err": fill["max_abs_err"],
+        "ms": fill["ms"],
+        "plain_ms": fill["plain_ms"],
+        "bound_ms": fill["bound_ms"],
+        "bound_by": fill["bound_by"],
         "library_ms": None,
     }, {
         "name": "mlsp_tiny",

@@ -36,13 +36,13 @@ MAX_PAIRS_PER_LAUNCH = 65535
 # Device words of tile headers (and of tiny-fill scratch rows) one group
 # of pairs may hold; a larger bucket runs as several groups.
 HEADER_CAP_WORDS = 1 << 28
-# Threads of one tiny-fill block (a multiple of 32, at most 256): small
-# blocks idle fewer steps in each row group's ramp when many pairs fill the
-# card; large blocks shorten the serial chain when a few wide pairs cannot
-# (PERF.md, the block-size sweep of chip_smoke.py). "Many" is at least
-# TINY_MANY_PER_SM pairs per SM.
+# Threads of one tiny-fill block (a multiple of 32, at most 256). Large
+# blocks shorten each pair's serial chain and win while the bucket's blocks
+# fill at most half of the card's resident threads; past that, small blocks
+# idle fewer steps in each row group's ramp and win (PERF.md, the
+# block-size sweep of chip_smoke.py: on an H100 the crossover lies between
+# 4 and 8 pairs per SM).
 TINY_THREADS_MANY, TINY_THREADS_FEW = 128, 256
-TINY_MANY_PER_SM = 4
 
 _tiny_lib = None
 
@@ -101,13 +101,14 @@ def _stream(dev: torch.device) -> int:
 def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                     gapo: int, gape: int, adjrs: torch.Tensor,
                     adjcs: torch.Tensor, *, tile_h: int, tile_w: int,
-                    kind: str, gap: str, headers: bool = True
+                    kind: str, gap: str, headers: bool = False
                     ) -> Dict[str, torch.Tensor]:
-    """Batched sparse fill; the outputs of ``mlsp_fill_batch_plain``:
-    per pair the tile headers in ``mlsp_fill_plain``'s layout (on a
-    leading pair axis), ``cost`` (B,) and for SW ``best`` (B, 3). With
-    ``headers=False`` only ``cost`` (and ``best``) are returned and the
-    headers of one group at a time are held on the card."""
+    """Batched sparse fill: ``cost`` (B,) and for SW ``best`` (B, 3).
+    ``headers=True`` also returns the tile headers in
+    ``mlsp_fill_plain``'s layout (on a leading pair axis): all the outputs
+    of ``mlsp_fill_batch_plain``. The kernel writes the headers either
+    way, since they carry the fill from tile to tile; without ``headers``
+    the card holds them one group of pairs at a time."""
     global FILL_LAUNCHES
     _check(subst, ys, xs, adjrs, adjcs)
     rows_p, cols_p = ys.shape[1] - 1, xs.shape[1] - 1
@@ -179,11 +180,12 @@ def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 def tiny_scores(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                 gapo: int, gape: int, adjrs: torch.Tensor,
                 adjcs: torch.Tensor, *, kind: str, gap: str,
-                threads: Optional[int] = None
+                _threads: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cost-only fill of a stacked bucket of small pairs; the outputs of
     ``scores_batch_plain``: (costs, best_i, best_j), each (B,) int32.
-    ``threads`` None picks the block size from the pair count."""
+    The block size follows from the pair count; ``_threads`` overrides it
+    (a hook for the checks and the block-size sweep)."""
     global TINY_LAUNCHES
     _check(subst, ys, xs, adjrs, adjcs)
     if ys.device.type == "cpu":
@@ -196,10 +198,13 @@ def tiny_scores(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     rows_p, cols_p = ys.shape[1] - 1, xs.shape[1] - 1
     is_sw = kind == "sw"
     affine = gap == "affine"
+    threads = _threads
     if threads is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        threads = (TINY_THREADS_MANY if n >= TINY_MANY_PER_SM * sms
-                   else TINY_THREADS_FEW)
+        props = torch.cuda.get_device_properties(dev)
+        resident = (props.multi_processor_count
+                    * props.max_threads_per_multi_processor)
+        threads = (TINY_THREADS_FEW if 2 * n * TINY_THREADS_FEW <= resident
+                   else TINY_THREADS_MANY)
     nt = min(threads, 32 * -(-rows_p // 32))
     i32 = dict(dtype=torch.int32, device=dev)
     S = subst.shape[0]

@@ -8,11 +8,14 @@
 // pairs to fill them): one thread block per pair and one launch per
 // bucket, so a bucket of any row count and any width runs as it is.
 //
-//   * The pair is one tile of rows_p x cols_p. Thread t owns rows t,
-//     t+nt, ... (groups of blockDim rows) and the block sweeps each
-//     group's anti-diagonals. H (and F) pass down one row per step with
+//   * The pair is one tile of its own live cells, (adjr-1) x (adjc-1):
+//     neither output depends on the bucket's padded rows and columns, so
+//     a block stops at its pair's corner. Thread t owns rows t, t+nt, ...
+//     (groups of blockDim rows) and the block sweeps each group's
+//     anti-diagonals. H (and F) pass down one row per step with
 //     __shfl_up_sync inside a warp and through a double-buffered
-//     shared-memory slot across warps, as in mlsp_fill.cu.
+//     shared-memory slot across warps, as in mlsp_fill.cu. The bucket's
+//     padded shape sets only the strides and the carried row's size.
 //   * No header is loaded or stored: the top row of the first group and
 //     the left column are the analytic edge (H[i,0], H[0,j]; F and E
 //     -inf). Between groups the last row of a group is carried in shared
@@ -20,7 +23,7 @@
 //     scratch row.
 //   * Outputs: cost[pair] (NW: H[adjr-1, adjc-1]; SW: the best value) and,
 //     for SW, best[pair] = (v, i, j), the row-major first maximum over
-//     live cells (i < adjr, j < adjc); (0, 0, 0) if no cell is > 0. The
+//     the live cells; (0, 0, 0) if no cell is > 0. The
 //     caller decides pairs with adjr < 2 or adjc < 2 itself: their NW
 //     cost lies on the edge and is not written. All arithmetic is int32.
 //
@@ -29,7 +32,7 @@
 // thousands of pairs); the bytes moved are the sequences and a few words
 // per pair. Each step is a shuffle, a few int32 max/add and a block
 // barrier; small blocks keep the idle ramp of each row group short
-// (nt - 1 of the nt + cols_p - 1 steps) and let many pairs share an SM.
+// (nt - 1 of the nt + cols - 1 steps) and let many pairs share an SM.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -76,26 +79,27 @@ __global__ void __launch_bounds__(kMaxThreads)
 mlsp_tiny_kernel(Params p) {
   extern __shared__ int smem[];
   const int b = blockIdx.x;
-  const int rows = p.rows_p, cols = p.cols_p;
-  const int adjr = p.adjrs[b], adjc = p.adjcs[b];
+  // Live rows and columns of this pair (uniform across the block).
+  const int rows = min(p.adjrs[b] - 1, p.rows_p);
+  const int cols = min(p.adjcs[b] - 1, p.cols_p);
   const int nt = blockDim.x;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5, nwarps = nt >> 5;
-  const int* y = p.ys + (size_t)b * (rows + 1);
-  const int* x = p.xs + (size_t)b * (cols + 1);
+  const int* y = p.ys + (size_t)b * (p.rows_p + 1);
+  const int* x = p.xs + (size_t)b * (p.cols_p + 1);
 
   int* s_subst = smem;
   int* xh = s_subst + p.S * p.S;  // [nwarps][2] H of each warp's last lane
   int* xf = xh + 2 * nwarps;      // [nwarps][2] F of each warp's last lane
   int* red = xf + 2 * nwarps;     // SW: [3][nt] per-thread best
-  int* top = p.scratch ? p.scratch + (size_t)b * carry_words(cols, AFFINE)
+  int* top = p.scratch ? p.scratch + (size_t)b * carry_words(p.cols_p, AFFINE)
                        : red + (SW ? 3 * nt : 0);
-  int* ftop = top + (cols + 1);
+  int* ftop = top + (p.cols_p + 1);
   for (int k = t; k < p.S * p.S; k += nt) s_subst[k] = p.subst[k];
   __syncthreads();
 
   int bv = 0, bi = 0, bj = 0;
-  const int ngroups = (rows + nt - 1) / nt;
+  const int ngroups = rows > 0 ? (rows + nt - 1) / nt : 0;
   for (int g = 0; g < ngroups; ++g) {
     const int r0 = g * nt;
     const int nr = min(nt, rows - r0);
@@ -136,12 +140,12 @@ mlsp_tiny_kernel(Params p) {
         }
         if (SW) {
           h = max(h, 0);
-          if (h > bv && gi < adjr && j < adjc) {
+          if (h > bv) {
             bv = h;
             bi = gi;
             bj = j;
           }
-        } else if (gi == adjr - 1 && j == adjc - 1) {
+        } else if (gi == rows && j == cols) {
           p.cost[b] = h;
         }
         diag = up_h;

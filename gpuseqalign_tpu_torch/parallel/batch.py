@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.types import AlignKind, AlignSpec, GapKind
 from ..ops import batch_cuda
@@ -60,7 +61,6 @@ class BatchResult:
     best_i: np.ndarray  # (N,) SW argmax row (0 for NW)
     best_j: np.ndarray  # (N,) SW argmax col (0 for NW)
     n_buckets: int = 0
-    n_programs: int = 0
 
 
 def _pad_pow2(n: int, floor: int) -> int:
@@ -150,7 +150,7 @@ def bucket_scores(spec: AlignSpec, subst: torch.Tensor, ys: torch.Tensor,
         out = batch_cuda.mlsp_fill_batch(
             subst, ys, xs, gapo, gape, adjrs, adjcs,
             tile_h=math.gcd(rows_p, 128), tile_w=math.gcd(cols_p, 512),
-            headers=False, **kw)
+            **kw)
         if "best" in out:
             return torch.cat([out["cost"].view(1, -1),
                               out["best"][:, 1:].t()])
@@ -173,7 +173,8 @@ def align_pairs_batched(
 
     ``device`` None means the CUDA card (RuntimeError without one). Each
     bucket is copied to the device once and its (cost, best) copied back
-    once; the host waits for the device only after the last bucket.
+    once; the host waits for the device only after the last bucket. The
+    host steps are torch.profiler spans named ``batch.*``.
     """
     if spec.gap == GapKind.AFFINE and (gapo > 0 or gape > 0):
         # Same domain guard as align_pallas_mlsp / the oracle: the
@@ -185,9 +186,10 @@ def align_pairs_batched(
     dev = resolve_device(device)
     n = len(pairs)
     out = np.zeros((3, n), np.int32)  # costs, best_i, best_j
-    buckets = bucket_pairs(pairs, quantum)
-    lens = np.array([(len(y), len(x)) for y, x in pairs],
-                    np.int64).reshape(n, 2)
+    with record_function("batch.bucket_pairs"):
+        buckets = bucket_pairs(pairs, quantum)
+        lens = np.array([(len(y), len(x)) for y, x in pairs],
+                        np.int64).reshape(n, 2)
     subst_d = torch.from_numpy(np.ascontiguousarray(subst, np.int32)).to(dev)
 
     pending = []
@@ -200,17 +202,18 @@ def align_pairs_batched(
         live = idxs[~degenerate]
         if not live.size:
             continue
-        res = bucket_scores(spec, subst_d,
-                            *stack_bucket(pairs, live, rows_p, cols_p, dev),
-                            gapo, gape)
-        if dev.type == "cuda":
-            host = torch.empty(res.shape, dtype=torch.int32,
-                               pin_memory=True)
-            res = host.copy_(res, non_blocking=True)
+        with record_function("batch.stack_bucket"):
+            stacked = stack_bucket(pairs, live, rows_p, cols_p, dev)
+        with record_function("batch.bucket_scores"):
+            res = bucket_scores(spec, subst_d, *stacked, gapo, gape)
+            if dev.type == "cuda":
+                host = torch.empty(res.shape, dtype=torch.int32,
+                                   pin_memory=True)
+                res = host.copy_(res, non_blocking=True)
         pending.append((live, res))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    for live, res in pending:
-        out[:, live] = res.numpy()
-    return BatchResult(out[0], out[1], out[2], n_buckets=len(buckets),
-                       n_programs=len(buckets))
+    with record_function("batch.gather"):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        for live, res in pending:
+            out[:, live] = res.numpy()
+    return BatchResult(out[0], out[1], out[2], n_buckets=len(buckets))

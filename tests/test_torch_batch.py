@@ -228,14 +228,14 @@ def test_wrappers_on_cpu_are_the_plain_versions(blosum62):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     fill_kw = dict(tile_h=16, tile_w=24, **kw)
     got = batch_cuda.mlsp_fill_batch(args[0], args[1], args[2], GAPO, GAPE,
-                                     args[3], args[4], **fill_kw)
+                                     args[3], args[4], headers=True,
+                                     **fill_kw)
     want = mlsp_fill_batch_plain(args[0], args[1], args[2], GAPO, GAPE,
                                  args[3], args[4], **fill_kw)
     assert got.keys() == want.keys()
     assert all(torch.equal(got[k], want[k]) for k in want)
     lean = batch_cuda.mlsp_fill_batch(args[0], args[1], args[2], GAPO, GAPE,
-                                      args[3], args[4], headers=False,
-                                      **fill_kw)
+                                      args[3], args[4], **fill_kw)
     assert sorted(lean) == ["best", "cost"]
     assert (batch_cuda.FILL_LAUNCHES, batch_cuda.TINY_LAUNCHES) == before
 
@@ -319,6 +319,24 @@ def test_throughput_on_cpu_verifies(tmp_path, capsys, spec):
     got = json.loads(out.read_text())
     assert got["pairs"] == len(got["costs"]) == 48
     assert got["device"] == "cpu"
+    assert got["seconds"] == float(np.median(got["seconds_all"]))
+    assert got["seconds_best"] == min(got["seconds_all"])
+
+
+def test_engine_steps_are_profiler_spans(blosum62):
+    """align_pairs_batched marks its host steps as torch.profiler spans,
+    which the chip smoke run reads to split a window between host and
+    device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(8)
+    pairs = [_pair(rng, r, c) for r, c in ((20, 30), (0, 4), (300, 10))]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        align_pairs_batched(AlignSpec.from_name("nw_lg"), blosum62, pairs,
+                            GAPO, device="cpu")
+    names = {e.key for e in prof.key_averages()}
+    assert {"batch.bucket_pairs", "batch.stack_bucket", "batch.bucket_scores",
+            "batch.gather"} <= names
 
 
 def test_throughput_streaming_on_cpu(tmp_path, capsys):
