@@ -12,15 +12,21 @@ Phases, each of which makes the script exit non-zero if it fails:
   2. kernels    each kernel against its plain PyTorch version on the card,
                 all four specs, several shapes: bit-exact (int32, no
                 tolerance). mlsp_fill (one pair), mlsp_fill_batch (a bucket
-                of pairs, also held pair by pair against mlsp_fill) and
-                mlsp_tiny (cost-only, small pairs)
-  3. cli        the single-pair path: bench.cli.main on the card for nw_lg,
-                nw_ag, sw_lg, sw_ag with cpu1_st_row as the reference,
-                score hash and traceback; err_step must be 0 in every row
+                of pairs, also held pair by pair against mlsp_fill),
+                mlsp_tiny (cost-only, small pairs) and dense_fill (the
+                full H of one pair, against rowscan_dense)
+  3. cli        the single-pair paths: bench.cli.main on the card for
+                nw_lg, nw_ag, sw_lg, sw_ag with cpu1_st_row as the
+                reference, the sparse names and the dense ones (tpu1, tpu2,
+                tpu3, a Gpu3-6 alias), score hash and traceback, and
+                resrc/param_best.json whole (all 13 reference names) for
+                nw_lg; err_step must be 0 in every row and both single-pair
+                kernels must have launched
   4. full size  resrc/pair_release.txt (23728 x 23728) through the CLI for
-                nw_lg, then the kernel against its plain version at that
-                size for every spec, timed with CUDA events
-  5. launches   the single-pair path's runs went through its kernel
+                nw_lg (cpu1_st_row, tpu7_pallas_mlsp, tpu3_pallas_dense),
+                then each single-pair kernel against its plain version at
+                that size for every spec, timed with CUDA events
+  5. launches   the single-pair paths' runs went through their kernels
   6. throughput the batch path: bench.throughput.main on the card for
                 resrc/pair_generated_1.txt (all four specs, pow2 buckets,
                 oracle check of 5 pairs) and 16384 synthetic pairs of
@@ -68,6 +74,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # max up/left, add gap, max; affine = F (max, 2 adds) + E (max, 2 adds) +
 # H (add, 2 max); SW adds the zero clamp and the best-cell compare.
 OPS_PER_CELL = {"nw_lg": 4, "sw_lg": 6, "nw_ag": 9, "sw_ag": 11}
+# The dense single-pair names the CLI phase adds to the sparse ones.
+DENSE_PARAMS = {"tpu1_xla_diag": {}, "tpu2_xla_rowscan": {},
+                "tpu3_pallas_dense": {},
+                "NwAlign_Gpu5_Coop_DiagDiag": {"tileAx": [52]}}
 # The reference's release pair (len23728 x len23728), bench.py's size.
 RELEASE_PAIRS = os.path.join(RESRC, "pair_release.txt")
 FULL_N = 23728
@@ -212,12 +222,17 @@ def bucket_work(spec, pairs, idxs, rows_p, cols_p, S, headers=False
 
 
 def run_cli(main, spec, params, pair_lines, name):
+    """bench.cli.main on the card; ``params`` is a dict of algorithm
+    parameters or the path of a parameter file."""
     os.makedirs(OUT, exist_ok=True)
     param_path = os.path.join(OUT, f"{name}_params.json")
     pair_path = os.path.join(OUT, f"{name}_pairs.txt")
     tsv = os.path.join(OUT, f"{name}.tsv")
-    with open(param_path, "w") as f:
-        json.dump(params, f)
+    if isinstance(params, str):
+        param_path = params
+    else:
+        with open(param_path, "w") as f:
+            json.dump(params, f)
     with open(pair_path, "w") as f:
         f.write("\n".join(pair_lines) + "\n")
     argv = [
@@ -266,6 +281,88 @@ def check_single_kernel(torch, subst, subst_np) -> int:
                 fail(f"kernel != plain: {spec} {rows}x{cols} tile "
                      f"{th}x{tw}, max |diff| {err}")
     return len(SPECS) * len(shapes)
+
+
+def rows_max_abs_diff(torch, a, b, chunk=1024) -> int:
+    """max |a - b| of two int32 matrices, a block of rows at a time."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        fail(f"shape/dtype {tuple(a.shape)}/{a.dtype} vs "
+             f"{tuple(b.shape)}/{b.dtype}")
+    err = 0
+    for r in range(0, a.shape[0], chunk):
+        d = a[r:r + chunk].long() - b[r:r + chunk].long()
+        err = max(err, int(d.abs().max()))
+    return err
+
+
+def dense_bound_ms(spec, adjr, adjc, S) -> tuple:
+    """Least time for the dense fill of one pair. Bytes: the inputs read
+    once (subst, y, x) and H (adjr, adjc) written once; operations: the
+    int32 operations of the recurrence over the live cells."""
+    nbytes = 4 * (S * S + adjr + adjc + adjr * adjc)
+    return bound(nbytes, OPS_PER_CELL[spec] * (adjr - 1) * (adjc - 1))
+
+
+def check_dense_kernel(torch, subst, subst_np) -> int:
+    """dense_fill against the (adjr, adjc) window of rowscan_dense over
+    the same padded inputs, bit-exact; returns the number of cases."""
+    from gpuseqalign_tpu_torch.ops import dense_cuda
+    from gpuseqalign_tpu_torch.ops.dense_plain import rowscan_dense
+
+    shapes = [  # residues of y and x
+        (1000, 1000), (700, 2100), (2100, 700),  # square, both rectangles
+        (1, 3000), (3000, 1), (1, 1),            # 1 x N, N x 1, 1 x 1
+        (777, 513), (129, 1025), (300, 37),      # not tile multiples
+        (0, 50), (50, 0),                        # an empty side: no launch
+    ]
+    for spec in SPECS:
+        for i, (rows, cols) in enumerate(shapes):
+            # Padded past the true lengths, as the host flow pads them.
+            y, x = padded_inputs(torch, subst_np, rows, cols, 128, 128, i)
+            adjr, adjc = rows + 1, cols + 1
+            kw = kind_gap(spec)
+            got = dense_cuda.dense_fill(subst, y, x, GAPO, GAPE[spec], adjr,
+                                        adjc, **kw)
+            want = rowscan_dense(subst, y, x, GAPO, GAPE[spec], **kw)
+            torch.cuda.synchronize()
+            err = rows_max_abs_diff(torch, got, want[:adjr, :adjc])
+            if err:
+                fail(f"dense_fill != rowscan_dense: {spec} {rows}x{cols}, "
+                     f"max |diff| {err}")
+    return len(SPECS) * len(shapes)
+
+
+def sweep_dense_tiles(torch, subst, subst_np, n) -> None:
+    """dense_fill's CUDA-event time (every spec at n x n, mean of 3 after
+    a warm-up) against its tile, each tile's H held against the default
+    tile's."""
+    from gpuseqalign_tpu_torch.ops import dense_cuda
+
+    default = (dense_cuda.TILE_H, dense_cuda.TILE_W)
+    tiles = [default, (128, 512), (128, 256), (128, 64), (256, 256),
+             (256, 128)]
+    y, x = padded_inputs(torch, subst_np, n, n, 128, 128, 300)
+    for spec in SPECS:
+        kw = dict(kind_gap(spec), adjr=n + 1, adjc=n + 1)
+        times = {}
+        for th, tw in tiles:
+            dense_cuda.TILE_H, dense_cuda.TILE_W = th, tw
+
+            def fill():
+                return dense_cuda.dense_fill(subst, y, x, GAPO, GAPE[spec],
+                                             **kw)
+
+            got = fill()
+            if (th, tw) == default:
+                want = got
+            elif not torch.equal(got, want):
+                fail(f"dense_fill tile {th}x{tw} != tile {default}: {spec}")
+            del got
+            times[f"{th}x{tw}"] = cuda_ms(torch, fill, 3)
+        dense_cuda.TILE_H, dense_cuda.TILE_W = default
+        del want
+        log(f"phase full-size dense_fill {spec} {n}x{n}: ms by tile "
+            + ", ".join(f"{k}: {v:.3f}" for k, v in times.items()))
 
 
 def check_batch_kernels(torch, subst) -> int:
@@ -653,7 +750,8 @@ def main() -> int:
 
     from gpuseqalign_tpu_torch.bench.cli import main as cli_main
     from gpuseqalign_tpu_torch.io.subst import parse_subst_file
-    from gpuseqalign_tpu_torch.ops import build, mlsp_cuda
+    from gpuseqalign_tpu_torch.ops import build, dense_cuda, mlsp_cuda
+    from gpuseqalign_tpu_torch.ops.dense_plain import rowscan_dense
     from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
 
     kind = torch.cuda.get_device_name(0)
@@ -679,9 +777,10 @@ def main() -> int:
         t0 = time.perf_counter()
         n1 = check_single_kernel(torch, subst, subst_np)
         nb = check_batch_kernels(torch, subst)
+        nd = check_dense_kernel(torch, subst, subst_np)
         times["kernels"] = time.perf_counter() - t0
-        log(f"phase kernels: {n1} mlsp_fill cases and {nb} batch cases "
-            f"bit-exact in {times['kernels']:.1f} s")
+        log(f"phase kernels: {n1} mlsp_fill cases, {nb} batch cases and "
+            f"{nd} dense_fill cases bit-exact in {times['kernels']:.1f} s")
 
     # 3. the single-pair path through the CLI, every spec
     params = {
@@ -698,40 +797,60 @@ def main() -> int:
                  "len512[2:] len728[:726]"]
         pairs += [p for p in debug if p.split()[0] in ("len1", "len2")
                   or "[" in p]
-        for spec in SPECS:
-            mlsp_cuda.LAUNCHES = 0
-            rows = run_cli(cli_main, spec, params, pairs, f"cli_{spec}")
-            cli_launches[spec] = mlsp_cuda.LAUNCHES
-            if cli_launches[spec] <= 0:
-                fail(f"cli {spec}: the kernel was never launched")
-            log(f"phase cli {spec}: {len(rows)} rows err_step 0, "
-                f"{cli_launches[spec]} kernel launches")
+        runs = [(spec, dict(params, **DENSE_PARAMS), f"cli_{spec}")
+                for spec in SPECS]
+        runs.append(("nw_lg", os.path.join(RESRC, "param_best.json"),
+                     "cli_param_best_nw_lg"))
+        for spec, run_params, name in runs:
+            mlsp_cuda.LAUNCHES = dense_cuda.LAUNCHES = 0
+            t1 = time.perf_counter()
+            rows = run_cli(cli_main, spec, run_params, pairs, name)
+            cli_launches[name] = {"mlsp_fill": mlsp_cuda.LAUNCHES,
+                                  "dense_fill": dense_cuda.LAUNCHES}
+            if min(cli_launches[name].values()) <= 0:
+                fail(f"cli {name}: a kernel was never launched: "
+                     f"{cli_launches[name]}")
+            calc = {}
+            for r in rows:
+                calc[r["alg_name"]] = (calc.get(r["alg_name"], 0.0)
+                                       + float(r["align.calc"]))
+            log(f"phase cli {name}: {len(rows)} rows of {len(calc)} "
+                f"algorithms err_step 0 in {time.perf_counter() - t1:.1f} "
+                f"s, kernel launches {cli_launches[name]}; align.calc ms "
+                f"summed over the pairs: "
+                + ", ".join(f"{a} {v:.1f}" for a, v in calc.items()))
         times["cli"] = time.perf_counter() - t0
 
     # 4. full size: the release pair through the CLI (nw_lg) ...
-    per_spec = {}
+    per_spec, dense_spec = {}, {}
     max_err = 0
-    main_launches = 0
+    main_launches = dense_launches = 0
     if "full" in phases:
         t0 = time.perf_counter()
         with open(RELEASE_PAIRS) as f:
             release = [line.strip() for line in f if line.strip()]
-        mlsp_cuda.LAUNCHES = 0
+        mlsp_cuda.LAUNCHES = dense_cuda.LAUNCHES = 0
         rows = run_cli(cli_main, "nw_lg",
                        {k: params[k] for k in ("cpu1_st_row",
-                                               "tpu7_pallas_mlsp")},
+                                               "tpu7_pallas_mlsp")}
+                       | {"tpu3_pallas_dense": {}},
                        release, "release_nw_lg")
         main_launches = mlsp_cuda.LAUNCHES
-        if main_launches <= 0:
-            fail("release nw_lg: the kernel was never launched")
-        mlsp_row = next(r for r in rows
-                        if r["alg_name"] == "tpu7_pallas_mlsp")
+        dense_launches = dense_cuda.LAUNCHES
+        if main_launches <= 0 or dense_launches <= 0:
+            fail(f"release nw_lg: a kernel was never launched (mlsp_fill "
+                 f"{main_launches}, dense_fill {dense_launches})")
         ref_row = next(r for r in rows if r["alg_name"] == "cpu1_st_row")
-        log(f"phase full-size cli nw_lg {release[0]}: cost "
-            f"{mlsp_row['align_cost']} (cpu1_st_row "
-            f"{ref_row['align_cost']}), align.calc {mlsp_row['align.calc']}"
-            f" ms, hash.calc {mlsp_row['hash.calc']} ms, trace.calc "
-            f"{mlsp_row['trace.calc']} ms, {main_launches} kernel launches")
+        for alg, n_launch in (("tpu7_pallas_mlsp", main_launches),
+                              ("tpu3_pallas_dense", dense_launches)):
+            row = next(r for r in rows if r["alg_name"] == alg)
+            log(f"phase full-size cli nw_lg {release[0]} {alg}: cost "
+                f"{row['align_cost']} (cpu1_st_row {ref_row['align_cost']}"
+                f"), laps ms: " + ", ".join(
+                    f"{lap} {row[lap]}" for lap in (
+                        "align.alloc", "align.cpy_dev", "align.calc",
+                        "align.cpy_host", "hash.calc", "trace.calc"))
+                + f"; {n_launch} kernel launches")
         times["full_cli"] = time.perf_counter() - t0
 
         # ... and the kernel against its plain version at that size, timed.
@@ -767,8 +886,49 @@ def main() -> int:
             del got, want
         times["full_kernels"] = time.perf_counter() - t0
 
+        # ... and the dense fill against its plain version, every spec.
+        t0 = time.perf_counter()
+        adj = n + 1
+        for i, spec in enumerate(SPECS):
+            y, x = padded_inputs(torch, subst_np, n, n, 128, 128, 200 + i)
+            kw = dict(kind_gap(spec), adjr=adj, adjc=adj)
+
+            def fill():
+                return dense_cuda.dense_fill(subst, y, x, GAPO, GAPE[spec],
+                                             **kw)
+
+            fill()  # warm-up
+            ms = cuda_ms(torch, fill, 3)
+            got = fill()
+            plain = []
+            plain_ms = cuda_ms(torch, lambda: plain.append(rowscan_dense(
+                subst, y[:adj], x[:adj], GAPO, GAPE[spec],
+                **kind_gap(spec))), 1)
+            err = rows_max_abs_diff(torch, got, plain[0])
+            if err:
+                fail(f"dense_fill != rowscan_dense at {n}x{n} {spec}: "
+                     f"max |diff| {err}")
+            b_ms, b_by = dense_bound_ms(spec, adj, adj, S)
+            dense_spec[spec] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err,
+                gcups=n * n / (ms * 1e-3) / 1e9,
+                launches_per_fill=(-(-n // dense_cuda.TILE_H)
+                                   + -(-n // dense_cuda.TILE_W) - 1),
+            )
+            log(f"phase full-size dense_fill {spec} {n}x{n} tile "
+                f"{dense_cuda.TILE_H}x{dense_cuda.TILE_W}: kernel "
+                f"{ms:.3f} ms ({dense_spec[spec]['gcups']:.3f} GCUPS, "
+                f"{dense_spec[spec]['launches_per_fill']} launches), plain "
+                f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"bit-exact")
+            del got, plain
+        sweep_dense_tiles(torch, subst, subst_np, n)
+        times["full_dense"] = time.perf_counter() - t0
+
     # 5. the single-pair path went through its kernel
-    log(f"launches: cli {cli_launches}, full-size cli nw_lg {main_launches}")
+    log(f"launches: cli {cli_launches}, full-size cli nw_lg mlsp_fill "
+        f"{main_launches}, dense_fill {dense_launches}")
 
     # 6. the batch path
     runs = {}
@@ -786,6 +946,7 @@ def main() -> int:
         log(f"partial run ({sorted(phases)}): no result line")
         return 0
     head = per_spec["nw_ag"]
+    dense_head = dense_spec["nw_ag"]
     k5 = runs["pair_generated_1_nw_ag"]["kernels"]["mlsp_fill_batch"]
     k6 = runs["synth_16384_nw_ag"]["kernels"]["mlsp_tiny"]
     print(json.dumps({"kernels": [{
@@ -823,6 +984,18 @@ def main() -> int:
         "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"],
         "bound_by": k6["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "dense_fill",
+        "route": "cuda",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_fill.cu",
+        "replaces": "gpuseqalign_tpu/ops/pallas_wavefront2.py:1421",
+        "launches": dense_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in dense_spec.values()),
+        "ms": dense_head["ms"],
+        "plain_ms": dense_head["plain_ms"],
+        "bound_ms": dense_head["bound_ms"],
+        "bound_by": dense_head["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

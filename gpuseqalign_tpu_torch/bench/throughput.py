@@ -27,7 +27,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, synchronize
 
 # Seed of --synthPairs, shared with gpuseqalign_tpu's benchmark so that
 # both draw the same pairs.
@@ -76,11 +76,6 @@ def live_cells(pairs: Sequence[Tuple[np.ndarray, np.ndarray]]) -> int:
     return sum((len(y) - 1) * (len(x) - 1) for y, x in pairs)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _verify(args, spec, subst, pairs, costs, idxs) -> int:
     """Mismatches of ``costs`` against the CPU oracle on ``idxs``."""
     from ..models.oracle import align_cost_of, oracle_align_dense
@@ -126,7 +121,7 @@ def _run_streaming(args, spec, subst, letter_map, dev) -> int:
         out = align_pairs_batched(spec, subst, pairs, args.gapoCost,
                                   args.gapeCost, quantum=args.quantum,
                                   device=dev)
-        _sync(dev)
+        synchronize(dev)
         t += time.perf_counter() - t0
         return out
 
@@ -217,7 +212,7 @@ def main(argv: Optional[List[str]] = None,
         out = align_pairs_batched(spec, subst, pairs, args.gapoCost,
                                   args.gapeCost, quantum=args.quantum,
                                   device=dev)
-        _sync(dev)
+        synchronize(dev)
         return out
 
     out = run()  # warm-up: builds and loads the kernels

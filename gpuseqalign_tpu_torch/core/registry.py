@@ -11,13 +11,21 @@ Alias mapping (reference -> this port):
   NwAlign_Cpu2_St_Diag       -> cpu2_st_diag       (host, anti-diagonal order)
   NwAlign_Cpu3_St_DiagRow    -> cpu3_st_diagrow    (host, tiled)
   NwAlign_Cpu4_Mt_DiagRow    -> cpu4_mt_diagrow    (host, tiled + OpenMP)
+  NwAlign_Gpu1_Ml_Diag       -> tpu1_xla_diag      (anti-diagonal scan, torch
+                                    ops on the device)
+  NwAlign_Gpu2_Ml_DiagRow2Pass -> tpu2_xla_rowscan (row max-plus scan, torch
+                                    ops on the device)
+  NwAlign_Gpu3_Ml_DiagDiag   -> tpu3_pallas_dense  (dense H: the CUDA
+                                    tile-diagonal kernel on the card)
+  NwAlign_Gpu4_Ml_DiagDiag2Pass -> tpu3_pallas_dense
+  NwAlign_Gpu5_Coop_DiagDiag -> tpu3_pallas_dense
+  NwAlign_Gpu6_Coop_DiagDiag2Pass -> tpu3_pallas_dense
   NwAlign_Gpu7_Mlsp_DiagDiag -> tpu7_pallas_mlsp   (sparse tile headers: the
                                     CUDA tile-diagonal kernel on the card)
   NwAlign_Gpu8_Mlsp_DiagDiag -> tpu7_pallas_mlsp
   NwAlign_Gpu9_Mlsp_DiagDiagDiag -> tpu7_pallas_mlsp
 
-Not ported yet, so unknown to the CLI: tpu1_xla_diag, tpu2_xla_rowscan,
-tpu3_pallas_dense, tpu9_giant_mlsp and the aliases NwAlign_Gpu1..6_*.
+Not ported yet, so unknown to the CLI: tpu9_giant_mlsp.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ class Algorithm:
 def get_algorithm_map() -> Dict[str, Algorithm]:
     """Build the name -> Algorithm map (insertion-ordered)."""
     from ..models import cpu_algs
-    from ..ops import mlsp_kernels
+    from ..ops import dense_kernels, mlsp_kernels
     from ..trace import plain, sparse
 
     def dense(align_fn: AlignFn) -> Algorithm:
@@ -74,7 +82,10 @@ def get_algorithm_map() -> Dict[str, Algorithm]:
     algs["cpu3_st_diagrow"] = dense(cpu_algs.align_cpu3_st_diagrow)
     algs["cpu4_mt_diagrow"] = dense(cpu_algs.align_cpu4_mt_diagrow)
 
-    # Device fill (name kept from gpuseqalign_tpu for parameter files).
+    # Device fills (names kept from gpuseqalign_tpu for parameter files).
+    algs["tpu1_xla_diag"] = dense(dense_kernels.align_xla_diag)
+    algs["tpu2_xla_rowscan"] = dense(dense_kernels.align_xla_rowscan)
+    algs["tpu3_pallas_dense"] = dense(dense_kernels.align_dense)
     algs["tpu7_pallas_mlsp"] = mlsp(mlsp_kernels.align_mlsp)
 
     # Reference-name aliases (same objects).
@@ -83,6 +94,12 @@ def get_algorithm_map() -> Dict[str, Algorithm]:
         "NwAlign_Cpu2_St_Diag": "cpu2_st_diag",
         "NwAlign_Cpu3_St_DiagRow": "cpu3_st_diagrow",
         "NwAlign_Cpu4_Mt_DiagRow": "cpu4_mt_diagrow",
+        "NwAlign_Gpu1_Ml_Diag": "tpu1_xla_diag",
+        "NwAlign_Gpu2_Ml_DiagRow2Pass": "tpu2_xla_rowscan",
+        "NwAlign_Gpu3_Ml_DiagDiag": "tpu3_pallas_dense",
+        "NwAlign_Gpu4_Ml_DiagDiag2Pass": "tpu3_pallas_dense",
+        "NwAlign_Gpu5_Coop_DiagDiag": "tpu3_pallas_dense",
+        "NwAlign_Gpu6_Coop_DiagDiag2Pass": "tpu3_pallas_dense",
         "NwAlign_Gpu7_Mlsp_DiagDiag": "tpu7_pallas_mlsp",
         "NwAlign_Gpu8_Mlsp_DiagDiag": "tpu7_pallas_mlsp",
         "NwAlign_Gpu9_Mlsp_DiagDiagDiag": "tpu7_pallas_mlsp",

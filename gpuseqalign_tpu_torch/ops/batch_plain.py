@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..core.types import NEG_INF_I32
-from .mlsp_plain import edge_col, edge_row, mlsp_fill_plain
+from .mlsp_plain import edge_col, edge_row, mlsp_fill_plain, row_step
 
 
 def scores_batch_plain(subst: torch.Tensor, ys: torch.Tensor,
@@ -41,7 +41,6 @@ def scores_batch_plain(subst: torch.Tensor, ys: torch.Tensor,
     n, rows_p = ys.shape[0], ys.shape[1] - 1
     width = xs.shape[1]
     is_sw = kind == "sw"
-    affine = gap == "affine"
     i32 = dict(dtype=torch.int32, device=dev)
 
     offs = torch.arange(width, **i32)
@@ -55,7 +54,6 @@ def scores_batch_plain(subst: torch.Tensor, ys: torch.Tensor,
     adjc_1 = (adjcs.long() - 1).view(n, 1)
     lane_valid = offs.view(1, width) < adjcs.view(n, 1)
     col0 = edge_col(torch.arange(rows_p + 1, **i32), gapo, gape, kind, gap)
-    ninf = torch.full((n, 1), NEG_INF_I32, **i32)
 
     hprev = edge_row(width, gapo, gape, kind, gap, dev).expand(n, width)
     fprev = torch.full((n, width), NEG_INF_I32, **i32)
@@ -64,26 +62,9 @@ def scores_batch_plain(subst: torch.Tensor, ys: torch.Tensor,
     bi = torch.zeros(n, **i32)
     bj = torch.zeros(n, **i32)
     for i in range(1, rows_p + 1):
-        srow = flat[yl[:, i:i + 1] + xl]
-        first = col0[i].expand(n, 1)
-        if not affine:
-            cand = torch.maximum(hprev[:, :-1] + srow[:, 1:],
-                                 hprev[:, 1:] + gapo)
-            if is_sw:
-                cand = cand.clamp_min(0)
-            a = torch.cat([first, cand], 1)
-            hrow = torch.cummax(a - goffs, 1).values + goffs
-        else:
-            frow = torch.maximum(fprev, hprev + gapo) + gape
-            frow[:, 0] = NEG_INF_I32
-            v = torch.maximum(hprev[:, :-1] + srow[:, 1:], frow[:, 1:])
-            vfull = torch.cat([first, v.clamp_min(0) if is_sw else v], 1)
-            m = torch.cummax(vfull + gapo - geoffs, 1).values
-            erow = torch.cat([ninf, m[:, :-1] + geoffs[1:]], 1)
-            hrow = torch.cat([first, torch.maximum(v, erow[:, 1:])], 1)
-            if is_sw:
-                hrow = hrow.clamp_min(0)
-            fprev = frow
+        hrow, fprev, _ = row_step(
+            hprev, fprev, flat[yl[:, i:i + 1] + xl], col0[i].expand(n, 1),
+            gapo, gape, goffs, geoffs, kind=kind, gap=gap)
         at = adjr == i + 1
         cost = torch.where(at, hrow.gather(1, adjc_1).view(n), cost)
         if is_sw:

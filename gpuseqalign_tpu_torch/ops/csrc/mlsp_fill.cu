@@ -1,13 +1,18 @@
-// mlsp_fill.cu — sparse (mlsp) tile-header fill for NW/SW x linear/affine.
+// mlsp_fill.cu — tile-diagonal DP fill for NW/SW x linear/affine: sparse
+// (mlsp) tile headers, or the dense H matrix.
 //
-// Replaces two TPU kernels of gpuseqalign_tpu/ops/pallas_wavefront2.py that
-// share one body (_make_kernel): pallas_mlsp_v2, one pair
-// (mlsp_fill_diag), and pallas_mlsp_batch_v2, a bucket of same-shape
-// pairs (mlsp_fill_batch_diag, _make_kernel(batch=True)). It computes the
-// same thing —
-// the DP matrix's tile headers, not the matrix — but not the TPU's layout
-// (lanes = rows, the K-chain echelon, packed substitution planes): the
-// design is the original reference's gpu7/gpu8 mlsp form.
+// Replaces three TPU kernels of gpuseqalign_tpu/ops/pallas_wavefront2.py
+// that share one body (_make_kernel): pallas_mlsp_v2, one pair
+// (mlsp_fill_diag), pallas_mlsp_batch_v2, a bucket of same-shape pairs
+// (mlsp_fill_batch_diag, _make_kernel(batch=True)), and pallas_dense_v2,
+// the full H of one pair (mlsp_fill_dense_diag, _make_kernel(dense=True)).
+// The sparse entries compute the same thing — the DP matrix's tile
+// headers, not the matrix — but not the TPU's layout (lanes = rows, the
+// K-chain echelon, packed substitution planes): the design is the
+// original reference's gpu7/gpu8 mlsp form. The dense entry is the same
+// sweep with each thread also storing its cell of the H window straight
+// to device memory (no wavefront history to unskew, as the TPU kernel
+// has): the headers still carry the fill between tiles.
 //
 //   * One launch per tile anti-diagonal d = it + jt, on the caller's
 //     stream; trows + tcols - 1 launches fill the matrix. A tile on
@@ -29,16 +34,24 @@
 //     true lengths come from device arrays, and the thread that owns the
 //     pair's cell (adjr-1, adjc-1) writes its NW cost. One launch per tile
 //     anti-diagonal covers every pair of the bucket (gridDim.y pairs).
+//   * The dense entry stores every live cell (gi < adjr, gj < adjc) to
+//     H[gi * adjc + gj], with 64-bit offsets (H passes 2^31 cells near
+//     46k x 46k). Padded cells are computed, never stored; the SW best is
+//     left to the caller, which scans H.
 //
-// What bounds it on an H100: not bytes (O(rows*cols/tile) header traffic)
-// but the serial dependency chain of the DP — each anti-diagonal step is
-// a shuffle, a few int32 max/add and a block barrier, and only
-// min(trows, tcols) tiles run at once, so most SMs idle on the short
-// diagonals. The int32 operation count per cell is the work bound
-// (PERF.md). This design keeps every dependency on chip (registers,
-// shuffles, shared memory) and touches device memory only for headers;
-// making it fast (a persistent echelon of row blocks, packed 16-bit
-// lanes, several tiles per block) is later work.
+// What bounds the sparse entries on an H100: not bytes (O(rows*cols/tile)
+// header traffic) but the serial dependency chain of the DP — each
+// anti-diagonal step is a shuffle, a few int32 max/add and a block
+// barrier, and only min(trows, tcols) tiles run at once, so most SMs idle
+// on the short diagonals. The int32 operation count per cell is their
+// work bound (PERF.md). The dense entry's bound is bytes: 4 per cell of
+// H. Its stores are one cell per thread per step, a row pitch apart
+// within a warp (uncoalesced; L2 merges a row's neighbouring cells from
+// consecutive steps before they reach device memory); the same serial
+// chain still sets its time. This design keeps every dependency on chip
+// (registers, shuffles, shared memory); making it fast (a persistent
+// echelon of row blocks, packed 16-bit lanes, several tiles per block,
+// staged row-wise H stores) is later work.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -68,6 +81,8 @@ struct Params {
   const int* adjrs;
   const int* adjcs;
   int* cost;
+  // Dense fill only: the full H window (adjr, adjc), row-major.
+  int* dense;
 };
 
 int block_threads(int th) {
@@ -106,7 +121,7 @@ __device__ Params pair_params(Params p, int b) {
   return p;
 }
 
-template <bool SW, bool AFFINE, bool BATCH>
+template <bool SW, bool AFFINE, bool BATCH, bool DENSE>
 __global__ void __launch_bounds__(kMaxThreads)
 mlsp_tile_kernel(Params args, int d, int it_lo) {
   extern __shared__ int smem[];
@@ -194,6 +209,8 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
             bj = gj;
           }
         }
+        if (DENSE && gi < p.adjr && gj < p.adjc)
+          p.dense[(size_t)gi * p.adjc + gj] = h;
         diag = up_h;
         h_left = h;
         h_out = h;
@@ -220,7 +237,7 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
     }
   }
 
-  if (SW) {
+  if (SW && !DENSE) {
     red[t] = bv;
     red[nt + t] = bi;
     red[2 * nt + t] = bj;
@@ -245,7 +262,7 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
   }
 }
 
-template <bool SW, bool AFFINE, bool BATCH>
+template <bool SW, bool AFFINE, bool BATCH, bool DENSE>
 int launch(const Params& p, int d, int npairs, cudaStream_t stream) {
   const int it_lo = std::max(0, d - p.tcols + 1);
   const int it_hi = std::min(d, p.trows - 1);
@@ -253,21 +270,21 @@ int launch(const Params& p, int d, int npairs, cudaStream_t stream) {
   size_t words = fixed_smem_words(p.S, nt, SW);
   if (!p.scratch) words += top_words(p.tw, AFFINE);
   const dim3 grid(it_hi - it_lo + 1, npairs);
-  mlsp_tile_kernel<SW, AFFINE, BATCH>
+  mlsp_tile_kernel<SW, AFFINE, BATCH, DENSE>
       <<<grid, nt, words * sizeof(int), stream>>>(p, d, it_lo);
   return (int)cudaGetLastError();
 }
 
-template <bool BATCH>
+template <bool BATCH, bool DENSE>
 int dispatch(int sw, int affine, const Params& p, int d, int npairs,
              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (sw) {
-    return affine ? launch<true, true, BATCH>(p, d, npairs, st)
-                  : launch<true, false, BATCH>(p, d, npairs, st);
+    return affine ? launch<true, true, BATCH, DENSE>(p, d, npairs, st)
+                  : launch<true, false, BATCH, DENSE>(p, d, npairs, st);
   }
-  return affine ? launch<false, true, BATCH>(p, d, npairs, st)
-                : launch<false, false, BATCH>(p, d, npairs, st);
+  return affine ? launch<false, true, BATCH, DENSE>(p, d, npairs, st)
+                : launch<false, false, BATCH, DENSE>(p, d, npairs, st);
 }
 
 }  // namespace
@@ -304,7 +321,7 @@ int mlsp_fill_diag(int sw, int affine, const int* subst, int S, const int* y,
     return (int)cudaErrorInvalidValue;
   Params p{subst, y,     x,   hrows, hcols, frows, ecols, tbest, scratch,
            S,     gapo,  gape, adjr, adjc,  th,    tw,    trows, tcols};
-  return dispatch<false>(sw, affine, p, d, 1, stream);
+  return dispatch<false, false>(sw, affine, p, d, 1, stream);
 }
 
 // The batched fill: the tiles of anti-diagonal d of every pair of a bucket
@@ -325,7 +342,29 @@ int mlsp_fill_batch_diag(int sw, int affine, const int* subst, int S,
   Params p{subst, ys,   xs,   hrows, hcols, frows, ecols, tbest, scratch,
            S,     gapo, gape, 0,     0,     th,    tw,    trows, tcols,
            adjrs, adjcs, cost};
-  return dispatch<true>(sw, affine, p, d, npairs, stream);
+  return dispatch<true, false>(sw, affine, p, d, npairs, stream);
+}
+
+// The dense fill: the tiles of anti-diagonal d of one pair, as
+// mlsp_fill_diag, and every cell of the pair's H window (adjr, adjc)
+// stored to H (row-major; row 0 and column 0 are the caller's). The tile
+// headers still carry the fill from tile to tile; tbest is not written.
+// Needs 2 <= adjr <= 1 + trows*th and 2 <= adjc <= 1 + tcols*tw.
+int mlsp_fill_dense_diag(int sw, int affine, const int* subst, int S,
+                         const int* y, const int* x, int gapo, int gape,
+                         int adjr, int adjc, int th, int tw, int trows,
+                         int tcols, int d, int* hrows, int* hcols,
+                         int* frows, int* ecols, int* H, int* scratch,
+                         void* stream) {
+  if (!H || adjr < 2 || adjc < 2 ||
+      (long long)adjr - 1 > (long long)trows * th ||
+      (long long)adjc - 1 > (long long)tcols * tw ||
+      !valid_args(sw, affine, S, th, tw, trows, tcols, d, scratch))
+    return (int)cudaErrorInvalidValue;
+  Params p{subst, y,     x,    hrows, hcols, frows,   ecols,   nullptr,
+           scratch, S,   gapo, gape,  adjr,  adjc,    th,      tw,
+           trows, tcols, nullptr, nullptr, nullptr, H};
+  return dispatch<false, true>(sw, affine, p, d, 1, stream);
 }
 
 }  // extern "C"

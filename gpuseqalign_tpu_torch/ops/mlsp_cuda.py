@@ -6,7 +6,8 @@ returns the same outputs. On a CUDA tensor it launches the kernel of
 current stream, no host sync between launches) or raises; it uses the
 plain version only for tensors that lie on the CPU. ``load_lib``,
 ``alloc_headers`` and ``tile_best`` serve the batched entry of the same
-library too (``batch_cuda.mlsp_fill_batch``).
+library too (``batch_cuda.mlsp_fill_batch``), and the first two its dense
+entry (``dense_cuda.dense_fill``).
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main path
 went through the kernel.
@@ -53,6 +54,14 @@ def load_lib() -> ctypes.CDLL:
             p, p,                      # cost, scratch, stream
         ]
         lib.mlsp_fill_batch_diag.restype = ctypes.c_int
+        lib.mlsp_fill_dense_diag.argtypes = [
+            i, i, p, i, p, p,          # sw, affine, subst, S, y, x
+            i, i, i, i,                # gapo, gape, adjr, adjc
+            i, i, i, i, i,             # th, tw, trows, tcols, d
+            p, p, p, p, p,             # hrows, hcols, frows, ecols, H
+            p, p,                      # scratch, stream
+        ]
+        lib.mlsp_fill_dense_diag.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -24,7 +24,7 @@ from ..core.types import (
     Status,
 )
 from ..trace.sparse import align_tile, align_tile_full, get_tile_and_elem_ij
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, synchronize
 from . import mlsp_cuda
 
 # Default tile; no tuned cache exists for the card yet.
@@ -111,11 +111,6 @@ def _mlsp_store(nw: AlgInput, res: AlgResult, hrows: np.ndarray,
     return Status.success
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def align_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult) -> Status:
     """Sparse tile-header fill for any spec (NW/SW x linear/affine), on
     ``nw.device``.
@@ -146,7 +141,7 @@ def align_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult) -> Status:
     subst_d = torch.from_numpy(np.ascontiguousarray(nw.subst)).to(dev)
     y_d = torch.from_numpy(y).to(dev)
     x_d = torch.from_numpy(x).to(dev)
-    _sync(dev)
+    synchronize(dev)
     sw.lap("align.cpy_dev")
 
     out_d = mlsp_cuda.mlsp_fill(
@@ -154,7 +149,7 @@ def align_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult) -> Status:
         nw.adjcols, tile_h=tile_h, tile_w=tile_w, kind=spec.kind.value,
         gap=spec.gap.value,
     )
-    _sync(dev)
+    synchronize(dev)
     sw.lap("align.calc")
     out = {k: v.cpu().numpy() for k, v in out_d.items()}
     sw.lap("align.cpy_host")

@@ -8,7 +8,9 @@ dependency is solved with a max-plus prefix scan,
 (``lax.cummax`` -> ``torch.cummax``; ``lax.scan`` -> a Python loop over
 rows). The CUDA kernel (``ops/csrc/mlsp_fill.cu``) computes the same
 outputs cell by cell; this function is its reference on the CPU tests and
-on the card, and it runs on whatever device its tensors lie on.
+on the card, and it runs on whatever device its tensors lie on. The row
+body, ``row_step``, is shared with the batch and dense plain fills
+(``ops/batch_plain.py``, ``ops/dense_plain.py``).
 
 Output contract, shared with the kernel (``ops/mlsp_cuda.py``), for
 ``rows_p = trows*tile_h`` and ``cols_p = tcols*tile_w`` padded DP sizes:
@@ -60,6 +62,39 @@ def edge_col(i: torch.Tensor, gapo: int, gape: int, kind: str,
     return i * gapo
 
 
+def row_step(hprev: torch.Tensor, fprev: torch.Tensor, srow: torch.Tensor,
+             first: torch.Tensor, gapo: int, gape: int, goffs: torch.Tensor,
+             geoffs: torch.Tensor, *, kind: str, gap: str):
+    """DP row i from row i-1 along the last dimension (any leading batch
+    shape), the one row body of every plain fill of the port.
+
+    ``hprev``/``fprev`` are H and F of row i-1 (``fprev`` is unused for a
+    linear gap), ``srow`` is subst[y_i, x_j] for every column j, ``first``
+    is H[i, 0] with a trailing dimension of 1, and ``goffs``/``geoffs`` are
+    j*gapo and j*gape. Returns (H, F, E) of row i; for a linear gap F is
+    ``fprev`` unchanged and E is None.
+    """
+    is_sw = kind == "sw"
+    if gap != "affine":
+        cand = torch.maximum(hprev[..., :-1] + srow[..., 1:],
+                             hprev[..., 1:] + gapo)
+        if is_sw:
+            cand = cand.clamp_min(0)
+        a = torch.cat([first, cand], -1)
+        return torch.cummax(a - goffs, -1).values + goffs, fprev, None
+    frow = torch.maximum(fprev, hprev + gapo) + gape
+    frow[..., 0] = NEG_INF_I32
+    v = torch.maximum(hprev[..., :-1] + srow[..., 1:], frow[..., 1:])
+    vfull = torch.cat([first, v.clamp_min(0) if is_sw else v], -1)
+    m = torch.cummax(vfull + gapo - geoffs, -1).values
+    erow = torch.cat([torch.full_like(first, NEG_INF_I32),
+                      m[..., :-1] + geoffs[1:]], -1)
+    hrow = torch.cat([first, torch.maximum(v, erow[..., 1:])], -1)
+    if is_sw:
+        hrow = hrow.clamp_min(0)
+    return hrow, frow, erow
+
+
 def mlsp_fill_plain(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                     gapo: int, gape: int, adjr: int, adjc: int, *,
                     tile_h: int, tile_w: int, kind: str, gap: str,
@@ -85,7 +120,6 @@ def mlsp_fill_plain(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     col_ids = torch.arange(tcols, device=dev) * tile_w
     col0 = edge_col(torch.arange(rows_p + 1, dtype=torch.int32, device=dev),
                     gapo, gape, kind, gap)
-    ninf = torch.full((1,), NEG_INF_I32, dtype=torch.int32, device=dev)
     live_cols = offs < adjc
 
     hprev = edge_row(width, gapo, gape, kind, gap, dev)
@@ -97,26 +131,10 @@ def mlsp_fill_plain(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
         frows.append(fprev)
         for r in range(tile_h):
             i = b * tile_h + r + 1
-            srow = sx.index_select(0, yl[i:i + 1])[0]
-            first = col0[i:i + 1]
-            if not affine:
-                cand = torch.maximum(hprev[:-1] + srow[1:], hprev[1:] + gapo)
-                if is_sw:
-                    cand = cand.clamp_min(0)
-                a = torch.cat([first, cand])
-                hrow = torch.cummax(a - goffs, 0).values + goffs
-                erow = None
-            else:
-                frow = torch.maximum(fprev, hprev + gapo) + gape
-                frow[0] = NEG_INF_I32
-                v = torch.maximum(hprev[:-1] + srow[1:], frow[1:])
-                vfull = torch.cat([first, v.clamp_min(0) if is_sw else v])
-                m = torch.cummax(vfull + gapo - geoffs, 0).values
-                erow = torch.cat([ninf, m[:-1] + geoffs[1:]])
-                hrow = torch.cat([first, torch.maximum(v, erow[1:])])
-                fprev = frow
+            hrow, fprev, erow = row_step(
+                hprev, fprev, sx.index_select(0, yl[i:i + 1])[0],
+                col0[i:i + 1], gapo, gape, goffs, geoffs, kind=kind, gap=gap)
             if is_sw:
-                hrow = hrow.clamp_min(0)
                 masked = torch.where(live_cols, hrow, 0)
                 rmax.append(masked.max())
                 rarg.append(masked.argmax())

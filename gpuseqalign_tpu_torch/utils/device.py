@@ -23,3 +23,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is present; pass device=\"cpu\" to run on the CPU"
         )
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so that a
+    host clock read next covers it."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -13,7 +13,11 @@ import os
 import pytest
 
 from gpuseqalign_tpu.bench.cli import main as jax_main
+from gpuseqalign_tpu.core.registry import (
+    get_algorithm_map as jax_algorithm_map,
+)
 from gpuseqalign_tpu_torch.bench.cli import main
+from gpuseqalign_tpu_torch.core.registry import get_algorithm_map
 
 RESRC = os.path.join(os.path.dirname(__file__), "..", "resrc")
 
@@ -89,14 +93,47 @@ def test_cli_nw_lg_matches_jax_cli(tmp_path):
     ]
 
 
-@pytest.mark.parametrize("name", [
-    "tpu1_xla_diag", "tpu2_xla_rowscan", "tpu3_pallas_dense",
-    "tpu9_giant_mlsp", "NwAlign_Gpu1_Ml_Diag", "NwAlign_Gpu6_Coop_DiagDiag2Pass",
-])
+@pytest.mark.parametrize("name", ["tpu9_giant_mlsp"])
 def test_cli_rejects_unported_algorithms(tmp_path, capsys, name):
     rc, _ = _run(main, tmp_path, "nw_lg", {name: {}}, device="cpu")
     assert rc == -1
     assert "unknown algorithm" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name", [
+    "tpu1_xla_diag", "tpu2_xla_rowscan", "tpu3_pallas_dense",
+    "NwAlign_Gpu1_Ml_Diag", "NwAlign_Gpu6_Coop_DiagDiag2Pass",
+])
+def test_cli_dense_algorithms_agree_with_reference(tmp_path, name):
+    params = {"cpu1_st_row": {}, name: {}}
+    rc, rows = _run(main, tmp_path, "nw_lg", params, device="cpu")
+    assert rc == 0
+    assert [r["alg_name"] for r in rows] == [
+        n for n in params for _ in VERIFY_PAIRS.splitlines()]
+    assert all(r["err_step"] == "0" for r in rows)
+
+
+def test_cli_loads_param_best_whole(tmp_path):
+    """The reference's own parameter file, all 13 names, on a few small
+    pairs; the port's names are the JAX package's but the giant engine's."""
+    best = os.path.join(RESRC, "param_best.json")
+    pair_file = tmp_path / "pairs.txt"
+    pair_file.write_text("len1 len1\nlen31 len33\nlen2 len128\n")
+    res = tmp_path / "out.tsv"
+    rc = main([
+        "--substPath", os.path.join(RESRC, "subst.json"),
+        "--algParamPath", best,
+        "--seqPath", os.path.join(RESRC, "seq_generated.fa"),
+        "--seqPairPath", str(pair_file), "--resPath", str(res),
+        "--fCalcScoreHash", "--fCalcTrace",
+    ], device="cpu")
+    assert rc == 0
+    rows = _read_tsv(res)
+    assert len({r["alg_name"] for r in rows}) == 13
+    assert len(rows) == 13 * 3
+    assert all(r["err_step"] == "0" for r in rows)
+    assert list(get_algorithm_map()) == [
+        n for n in jax_algorithm_map() if n != "tpu9_giant_mlsp"]
 
 
 def test_cli_profile_dir_writes_trace(tmp_path):

@@ -65,7 +65,8 @@ print(json.dumps({"mods": mods, "loaded": sorted(sys.modules)}))
     )
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("ops.mlsp_cuda", "bench.cli", "parallel.batch",
-                "ops.batch_cuda", "bench.throughput"):
+                "ops.batch_cuda", "bench.throughput", "ops.dense_cuda",
+                "ops.dense_kernels"):
         assert f"gpuseqalign_tpu_torch.{mod}" in got["mods"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
