@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of gpuseqalign_tpu_torch (the PyTorch/CUDA port) on one card.
 
-    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput]
+    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant]
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (CUDA
 toolkit with nvcc; the kernels are built from the checkout's sources).
@@ -13,8 +13,13 @@ Phases, each of which makes the script exit non-zero if it fails:
                 all four specs, several shapes: bit-exact (int32, no
                 tolerance). mlsp_fill (one pair), mlsp_fill_batch (a bucket
                 of pairs, also held pair by pair against mlsp_fill),
-                mlsp_tiny (cost-only, small pairs) and dense_fill (the
-                full H of one pair, against rowscan_dense)
+                mlsp_tiny (cost-only, small pairs), dense_fill (the
+                full H of one pair, against rowscan_dense) and
+                banded_pass (K7: chains of passes over column bands, each
+                band's halo from the band to its left, the SW clamp, 1x1
+                and 5x300, one call of several passes' rows); then
+                banded_pass timed against its plain version on the whole
+                band of a 23728 x 23728 pair (D = 1), every spec
   3. cli        the single-pair paths: bench.cli.main on the card for
                 nw_lg, nw_ag, sw_lg, sw_ag with cpu1_st_row as the
                 reference, the sparse names and the dense ones (tpu1, tpu2,
@@ -23,7 +28,8 @@ Phases, each of which makes the script exit non-zero if it fails:
                 nw_lg; err_step must be 0 in every row and both single-pair
                 kernels must have launched
   4. full size  resrc/pair_release.txt (23728 x 23728) through the CLI for
-                nw_lg (cpu1_st_row, tpu7_pallas_mlsp, tpu3_pallas_dense),
+                nw_lg (cpu1_st_row, tpu7_pallas_mlsp, tpu3_pallas_dense,
+                tpu9_giant_mlsp),
                 then each single-pair kernel against its plain version at
                 that size for every spec, timed with CUDA events
   5. launches   the single-pair paths' runs went through their kernels
@@ -40,6 +46,19 @@ Phases, each of which makes the script exit non-zero if it fails:
                 block-size sweep over bucket sizes, and a torch.profiler
                 trace of three synth_16384 nw_ag windows (device idle share,
                 host time of each step of the engine)
+  7. giant      the giant-pair engine: tpu9_giant_mlsp beside cpu1_st_row
+                through the CLI (the cli phase's pairs, every spec); a
+                100000 x 100000 pair (numpy, fixed seed) through
+                align_giant2 at D = 1 for every spec, its layout held
+                against mlsp_fill's (K1) at the same tile, nw_ag's sparse
+                trace against tpu7_pallas_mlsp's, the fill timed with CUDA
+                events and held against banded_pass_plain; D = 2 and 4 bands on the one card (23728^2 every
+                spec, 100000^2 nw_ag) held against D = 1; --giantStream
+                and --giantSequential on pair_generated_1 nw_ag (one band:
+                both one call a pair), then align_giant2_stream against
+                align_giant2 on two bands of the one card; the batch
+                engine on a two-entry mesh against no mesh; and
+                align_pairs_multihost in two processes on the one card
 
 With every phase run (the default), the line before the last is a JSON
 object describing every kernel and the last line is the contract line
@@ -61,7 +80,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RESRC = os.path.join(HERE, "resrc")
 OUT = os.path.join(HERE, "logs", "chip_smoke")
 SPECS = ("nw_lg", "nw_ag", "sw_lg", "sw_ag")
-PHASES = ("build", "kernels", "cli", "full", "throughput")
+PHASES = ("build", "kernels", "cli", "full", "throughput", "giant")
 GAPO = -11
 GAPE = {"nw_lg": 0, "sw_lg": 0, "nw_ag": -2, "sw_ag": -2}
 
@@ -87,6 +106,22 @@ THROUGHPUT_RUNS = (
     ("pair_generated_1",
      ["--seqPairPath", os.path.join(RESRC, "pair_generated_1.txt")], SPECS),
     ("synth_16384", ["--synthPairs", "16384,300,500"], ("nw_ag", "sw_ag")),
+)
+# The giant pair of BASELINE.json's config 5 (100k x 100k), made with
+# numpy from a fixed seed over the blosum62 alphabet.
+GIANT_N = 100000
+GIANT_SEED = 20261016
+# K7's cases against its plain version: rows, cols (residues), R, TW,
+# band_cols, D bands, BL row blocks a call.
+BANDED_CASES = (
+    (200, 120, 128, 128, 128, 1, 2),    # one pass, band_cols = TW
+    (700, 1000, 128, 128, 384, 3, 2),   # 3 passes x 3 bands, real halos;
+                                        # SW clamp on bands 0 and 1
+    (700, 1000, 128, 128, 384, 3, 6),   # one call of 3 passes' rows
+    (600, 700, 256, 128, 384, 2, 1),    # R = 256
+    (300, 500, 128, 256, 512, 1, 3),    # TW = 256
+    (1, 1, 128, 128, 128, 2, 2),        # 1 x 1 (band 1 all padding)
+    (5, 300, 128, 128, 256, 2, 1),      # 5 x 300
 )
 
 
@@ -732,6 +767,562 @@ def trace_synth_windows(torch, subst_np, S, n_windows=3) -> list:
     return out
 
 
+def cli_pairs() -> list:
+    """The pair subset of the CLI runs: four verify pairs and pair_debug's
+    degenerate and substring pairs."""
+    with open(os.path.join(RESRC, "pair_debug.txt")) as f:
+        debug = [line.strip() for line in f if line.strip()]
+    pairs = ["len1 len1", "len31 len33", "len196 len256",
+             "len512[2:] len728[:726]"]
+    return pairs + [p for p in debug if p.split()[0] in ("len1", "len2")
+                    or "[" in p]
+
+
+def band_chain(torch, fill, subst, y, x, spec, rows, cols, R, TW,
+               band_cols, D, BL) -> list:
+    """A pair of rows x cols residues (y, x on the card, zero-padded to
+    whole calls and bands) filled as D column bands in calls of BL row
+    blocks, each call through ``fill`` (K7's wrapper or its plain
+    version): band 0's halo is the matrix's left column, band k's the
+    right edge (corner, H, E) of band k-1's call over the same rows.
+    Returns every call's outputs, band by band."""
+    from gpuseqalign_tpu_torch.core.types import NEG_INF_I32
+    from gpuseqalign_tpu_torch.ops.mlsp_plain import edge_col, edge_row
+
+    kw = kind_gap(spec)
+    affine = kw["gap"] == "affine"
+    g, ge = GAPO, GAPE[spec]
+    dev = y.device
+    rows_p = y.numel() - 1
+    jtE = band_cols // TW
+
+    def ninf(k):
+        return torch.full((k,), NEG_INF_I32, dtype=torch.int32, device=dev)
+
+    hdr = edge_row(D * band_cols + 1, g, ge, kw["kind"], kw["gap"], dev)
+    col = edge_col(torch.arange(rows_p + 1, dtype=torch.int32, device=dev),
+                   g, ge, kw["kind"], kw["gap"])
+    col[0] = 0
+    outs, halos = [], None
+    for k in range(D):
+        c0 = k * band_cols
+        prev = hdr[c0:c0 + band_cols + 1]
+        prevF = ninf(band_cols + 1) if affine else None
+        edges = []
+        for p in range(rows_p // (BL * R)):
+            r0 = p * BL * R
+            if k == 0:
+                haloH = col[r0:r0 + BL * R + 1]
+                haloE = ninf(BL * R) if affine else None
+            else:
+                haloH, haloE = halos[p]
+            out = fill(subst, y[r0:r0 + BL * R + 1],
+                       x[c0:c0 + band_cols + 1], g, ge, prev, prevF, haloH,
+                       haloE, rows + 1 - r0, cols + 1 - c0, tile_h=R,
+                       tile_w=TW, **kw)
+            outs.append(out)
+            edges.append((
+                torch.cat([prev[band_cols:],
+                           out["hcols"][:, :, jtE].reshape(-1)]),
+                out["ecols"][:, :, jtE].reshape(-1).contiguous()
+                if affine else None))
+            prev = out["hrows"][-1]
+            prevF = out["frows"][-1] if affine else None
+        halos = edges
+    return outs
+
+
+def check_banded_kernel(torch, subst, subst_np) -> int:
+    """banded_pass (K7) against banded_pass_plain on the card, bit-exact,
+    on BANDED_CASES and the SW band clamp case; returns the number of
+    cases."""
+    from gpuseqalign_tpu_torch.ops.banded_cuda import banded_pass
+    from gpuseqalign_tpu_torch.ops.banded_plain import banded_pass_plain
+
+    n = 0
+    for spec in SPECS:
+        for i, (rows, cols, R, TW, bc, D, BL) in enumerate(BANDED_CASES):
+            y, x = padded_inputs(torch, subst_np, rows, cols, BL * R, D * bc,
+                                 400 + i)
+            args = (subst, y, x, spec, rows, cols, R, TW, bc, D, BL)
+            got = band_chain(torch, banded_pass, *args)
+            want = band_chain(torch, banded_pass_plain, *args)
+            torch.cuda.synchronize()
+            for c, (a, b) in enumerate(zip(got, want)):
+                err = max_abs_diff(torch, a, b)
+                if err:
+                    fail(f"banded_pass != plain: {spec} {rows}x{cols} R {R} "
+                         f"TW {TW} band_cols {bc} D {D} BL {BL}, call {c}: "
+                         f"max |diff| {err}")
+            n += 1
+    # The SW clamp (the TPU kernel's regression): a band left of the
+    # pair's last column, row letters 0, band letters never 0, so every
+    # true cell scores <= 0.
+    import numpy as np
+
+    s8 = np.full((8, 8), -3, np.int32)
+    np.fill_diagonal(s8, 10)
+    x8 = np.concatenate([[0], np.random.default_rng(7).integers(1, 8, 128)])
+    zeros = torch.zeros(129, dtype=torch.int32, device="cuda")
+    args = (torch.from_numpy(s8).cuda(), zeros,
+            torch.from_numpy(x8.astype(np.int32)).cuda(), -4, 0, zeros,
+            None, zeros, None, 121, 300)
+    kw = dict(tile_h=128, tile_w=128, kind="sw", gap="linear")
+    got = banded_pass(*args, **kw)
+    want = banded_pass_plain(*args, **kw)
+    if max_abs_diff(torch, got, want) or got["best"].tolist() != [0, 0, 0]:
+        fail(f"banded_pass SW clamp: best {got['best'].tolist()}, plain "
+             f"{want['best'].tolist()}")
+    return n + 1
+
+
+def time_banded(torch, subst, subst_np, n, S) -> dict:
+    """K7 on the whole band of an n x n pair at D = 1 (the engine's
+    geometry and its one call), every spec: CUDA-event ms (mean of 3
+    after a warm-up), its plain version's (one call), max |diff| over
+    every output, launches, GCUPS and bound."""
+    from gpuseqalign_tpu_torch.core.types import AlgParams
+    from gpuseqalign_tpu_torch.ops.banded_cuda import banded_pass
+    from gpuseqalign_tpu_torch.ops.banded_plain import banded_pass_plain
+    from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
+
+    R, TW, bc, BL = band_geometry(AlgParams({}), [n], [n], 1)
+    rows_p = -(-n // (BL * R)) * BL * R
+    out = {}
+    for i, spec in enumerate(SPECS):
+        y, x = padded_inputs(torch, subst_np, n, n, rows_p, bc, 500 + i)
+        args = (subst, y, x, spec, n, n, R, TW, bc, 1, rows_p // R)
+        band_chain(torch, banded_pass, *args)  # warm-up
+        ms = cuda_ms(torch, lambda: band_chain(torch, banded_pass, *args), 3)
+        got = band_chain(torch, banded_pass, *args)
+        want = []
+        plain_ms = cuda_ms(torch, lambda: want.extend(
+            band_chain(torch, banded_pass_plain, *args)), 1)
+        err = max_abs_diff(torch, got[0], want[0])
+        if err:
+            fail(f"banded_pass != plain at {n}x{n} {spec}: max |diff| {err}")
+        b_ms, b_by = bound_ms(spec, rows_p, bc, R, TW, S)
+        out[spec] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                         bound_ms=b_ms, bound_by=b_by,
+                         gcups=n * n / (ms * 1e-3) / 1e9,
+                         launches_per_fill=rows_p // R + bc // TW - 1)
+        log(f"phase kernels: banded_pass {spec} {n}x{n} D 1 (band "
+            f"{rows_p}x{bc}, tile {R}x{TW}): kernel {ms:.3f} ms "
+            f"({out[spec]['gcups']:.3f} GCUPS, "
+            f"{out[spec]['launches_per_fill']} launches), plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), bit-exact")
+        del got, want
+    return out
+
+
+def giant_inputs(torch, y_np, x_np, n_rows, n_cols, D, pr=None):
+    """The engine's geometry for an n_rows x n_cols pair on D bands and
+    the pair zero-padded to it, on the card: (R, TW, band_cols, BL,
+    rows_p, y, x)."""
+    import numpy as np
+
+    from gpuseqalign_tpu_torch.core.types import AlgParams
+    from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
+
+    R, TW, bc, BL = band_geometry(pr or AlgParams({}), [n_rows], [n_cols], D)
+    rows_p = -(-max(n_rows, 1) // (BL * R)) * BL * R
+    y = np.zeros(1 + rows_p, np.int32)
+    x = np.zeros(1 + D * bc, np.int32)
+    y[:n_rows + 1] = y_np
+    x[:n_cols + 1] = x_np
+    return (R, TW, bc, BL, rows_p, torch.from_numpy(y).cuda(),
+            torch.from_numpy(x).cuda())
+
+
+def giant_pair(S, n):
+    import numpy as np
+
+    rng = np.random.default_rng(GIANT_SEED)
+    return (np.concatenate([[0], rng.integers(0, S, n)]).astype(np.int32),
+            np.concatenate([[0], rng.integers(0, S, n)]).astype(np.int32))
+
+
+def same_shared_tiles(a, rows_a, cols_a, b, rows_b, cols_b) -> bool:
+    """Two tile-major sparse mats equal on the tiles both layouts have."""
+    tr, tc = min(rows_a, rows_b), min(cols_a, cols_b)
+    return bool((a.reshape(rows_a, cols_a, -1)[:tr, :tc]
+                 == b.reshape(rows_b, cols_b, -1)[:tr, :tc]).all())
+
+
+def giant_full(torch, subst, subst_np, S) -> dict:
+    """The 100000 x 100000 pair through align_giant2 at D = 1 for every
+    spec (the main path of the giant phase), its sparse layout held
+    against tpu7_pallas_mlsp's (K1) at the same 128 x 128 tile on every
+    tile both have, the cost and best cell too, and for nw_ag the sparse
+    trace of both; then the fill alone timed with CUDA events and its
+    every output held bit-exactly against banded_pass_plain's on the same
+    inputs on the card. Returns per spec and the K7 launches of the
+    align_giant2 calls."""
+    from gpuseqalign_tpu_torch.core.registry import get_algorithm_map
+    from gpuseqalign_tpu_torch.core.types import (
+        AlgParams,
+        AlgResult,
+        make_alg_input,
+    )
+    from gpuseqalign_tpu_torch.ops import banded_cuda
+    from gpuseqalign_tpu_torch.ops.banded_plain import banded_pass_plain
+    from gpuseqalign_tpu_torch.parallel import giant2_fill, make_mesh
+    from gpuseqalign_tpu_torch.parallel.giant2 import align_giant2
+
+    n = GIANT_N
+    y_np, x_np = giant_pair(S, n)
+    one = make_mesh(devices=["cuda:0"], axis_name="sp")
+    algs = get_algorithm_map()
+    mats = ("tileHrowMat", "tileHcolMat", "tileFrowMat", "tileEcolMat")
+    out, launches = {}, 0
+    for spec in SPECS:
+        nw = make_alg_input(subst_np, y_np, x_np, GAPO, GAPE[spec], spec)
+        res = AlgResult()
+        banded_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        stat = align_giant2(AlgParams({}), nw, res, mesh=one)
+        wall = time.perf_counter() - t0
+        n_launch = banded_cuda.LAUNCHES
+        launches += n_launch
+        if stat != 0 or n_launch <= 0:
+            fail(f"giant {n}x{n} {spec}: status {stat}, {n_launch} K7 "
+                 f"launches")
+        ref = make_alg_input(subst_np, y_np, x_np, GAPO, GAPE[spec], spec)
+        rres = AlgResult()
+        t0 = time.perf_counter()
+        if algs["tpu7_pallas_mlsp"].align(
+                AlgParams({"tileBy": [128], "tileBx": [128]}), ref, rres):
+            fail(f"tpu7_pallas_mlsp {n}x{n} {spec} failed")
+        k1_wall = time.perf_counter() - t0
+        shape_g = (nw.tile_hdr_mat_rows, nw.tile_hdr_mat_cols)
+        shape_k1 = (ref.tile_hdr_mat_rows, ref.tile_hdr_mat_cols)
+        for m in mats:
+            a, b = getattr(nw, m), getattr(ref, m)
+            if (a is None) != (b is None) or (
+                    a is not None
+                    and not same_shared_tiles(a, *shape_g, b, *shape_k1)):
+                fail(f"giant {n}x{n} {spec}: {m} differs from K1's")
+        if (res.align_cost, nw.best_i, nw.best_j) != (
+                rres.align_cost, ref.best_i, ref.best_j):
+            fail(f"giant {n}x{n} {spec}: cost/best {res.align_cost} "
+                 f"{nw.best_i} {nw.best_j} vs K1 {rres.align_cost} "
+                 f"{ref.best_i} {ref.best_j}")
+        trace = ""
+        if spec == "nw_ag":
+            t0 = time.perf_counter()
+            for alg, a_nw, a_res in (("tpu9_giant_mlsp", nw, res),
+                                     ("tpu7_pallas_mlsp", ref, rres)):
+                if algs[alg].trace(a_nw, a_res, False):
+                    fail(f"{alg} {n}x{n} {spec}: trace failed")
+            if (res.edit_trace != rres.edit_trace
+                    or res.align_cost != rres.align_cost):
+                fail(f"giant {n}x{n} {spec}: transcript differs from "
+                     f"tpu7_pallas_mlsp's")
+            trace = (f"; sparse trace of both {time.perf_counter() - t0:.1f}"
+                     f" s, transcripts ({len(res.edit_trace)} characters) "
+                     f"equal")
+        laps = res.sw_align.laps()
+        del nw, ref, res, rres
+        R, TW, bc, BL, rows_p, y, x = giant_inputs(torch, y_np, x_np, n, n, 1)
+
+        def fill():
+            return giant2_fill(subst, [y], [x], GAPO, GAPE[spec], [n + 1],
+                               [n + 1], mesh=one, R=R, TW=TW, band_cols=bc,
+                               BL=BL, **kind_gap(spec))
+
+        ms = cuda_ms(torch, fill, 2)
+        got = dict(fill()[0][0])
+        if "best" in got:
+            got["best"] = got["best"][0]  # one call, at the pair's origin
+        want = []
+        plain_ms = cuda_ms(torch, lambda: want.extend(band_chain(
+            torch, banded_pass_plain, subst, y, x, spec, n, n, R, TW, bc, 1,
+            rows_p // R)), 1)
+        err = max_abs_diff(torch, got, want[0])
+        if err:
+            fail(f"giant {n}x{n} {spec}: the fill != banded_pass_plain, "
+                 f"max |diff| {err}")
+        del got, want
+        b_ms, b_by = bound_ms(spec, rows_p, bc, R, TW, S)
+        out[spec] = dict(ms=ms, gcups=n * n / (ms * 1e-3) / 1e9,
+                         launches=n_launch, bound_ms=b_ms, bound_by=b_by,
+                         plain_ms=plain_ms, max_abs_err=err, wall_s=wall,
+                         laps=laps)
+        log(f"phase giant {n}x{n} {spec} D 1 (band {rows_p}x{bc}, tile "
+            f"{R}x{TW}, BL {BL}): fill {ms:.3f} ms ({out[spec]['gcups']:.3f}"
+            f" GCUPS), {n_launch} launches, bound {b_ms:.4f} ms ({b_by}), "
+            f"bit-exact against banded_pass_plain (plain {plain_ms:.1f} ms); "
+            f"align_giant2 {wall:.2f} s, laps ms "
+            + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+            + f"; layout {shape_g[0]}x{shape_g[1]} tiles equal to K1's "
+            f"{shape_k1[0]}x{shape_k1[1]} on the shared ones, cost and best "
+            f"cell equal (tpu7 {k1_wall:.2f} s)" + trace)
+    return dict(specs=out, launches=launches)
+
+
+def giant_bands(torch, subst, S, n, specs, Ds) -> dict:
+    """An n x n pair through giant2_fill on the one card at D = 1 and at
+    each D of Ds (D bands on D streams, halos by device-local copies),
+    every spec of specs: the gathered layout of each D equal to D = 1's
+    on the tiles both have; the CUDA-event ms of that one fill (its
+    header grids come from the allocator's cache of the runs before) and
+    its launches."""
+    from gpuseqalign_tpu_torch.ops import banded_cuda
+    from gpuseqalign_tpu_torch.parallel import giant2_fill, make_mesh
+    from gpuseqalign_tpu_torch.parallel.giant2 import gather_bands
+
+    y_np, x_np = giant_pair(S, n)
+    out = {}
+    for spec in specs:
+        base = None
+        for D in (1,) + tuple(Ds):
+            mesh = make_mesh(devices=["cuda:0"] * D, axis_name="sp")
+            R, TW, bc, BL, rows_p, y, x = giant_inputs(torch, y_np, x_np, n,
+                                                        n, D)
+
+            def fill():
+                return giant2_fill(subst, [y], [x], GAPO, GAPE[spec],
+                                   [n + 1], [n + 1], mesh=mesh, R=R, TW=TW,
+                                   band_cols=bc, BL=BL, **kind_gap(spec))
+
+            banded_cuda.LAUNCHES = 0
+            bands = []
+            ms = cuda_ms(torch, lambda: bands.extend(fill()[0]), 1)
+            n_launch = banded_cuda.LAUNCHES
+            g = gather_bands([{k: v.cpu().numpy() for k, v in b.items()}
+                              for b in bands], band_cols=bc, tile_w=TW)
+            del bands
+            if base is None:
+                base = g
+            else:
+                for k, a in g.items():
+                    b = base[k]
+                    sl = tuple(slice(0, min(p, q))
+                               for p, q in zip(a.shape, b.shape))
+                    if not (a[sl] == b[sl]).all():
+                        fail(f"giant {n}x{n} {spec} D {D}: {k} differs "
+                             f"from D 1")
+            out[f"{spec}_D{D}"] = dict(ms=ms, launches=n_launch)
+            log(f"phase giant {n}x{n} {spec} D {D} on one card (band "
+                f"{rows_p}x{bc}, BL {BL}, {rows_p // (BL * R)} passes): "
+                f"fill {ms:.3f} ms ({n * n / (ms * 1e-3) / 1e9:.3f} GCUPS), "
+                f"{n_launch} launches"
+                + ("" if D == 1 else ", layout equal to D 1's"))
+            del g
+    return out
+
+
+MULTIHOST_WORKER = """
+import json, sys
+sys.path.insert(0, sys.argv[3])
+from gpuseqalign_tpu_torch.bench.throughput import synth_pairs
+from gpuseqalign_tpu_torch.core.types import AlignSpec
+from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+from gpuseqalign_tpu_torch.parallel import (
+    align_pairs_multihost, distributed_init)
+distributed_init("localhost:" + sys.argv[2], 2, int(sys.argv[1]))
+subst = parse_subst_file(sys.argv[4]).subst_map["blosum62"]
+pairs = synth_pairs(512, 100, 1500, subst.shape[0])
+out = align_pairs_multihost(AlignSpec.from_name("sw_ag"), subst, pairs,
+                            -11, -2, quantum="pow2", device="cuda:0")
+print(json.dumps([out.costs.tolist(), out.best_i.tolist(),
+                  out.best_j.tolist()]))
+import torch.distributed
+torch.distributed.destroy_process_group()
+"""
+
+
+def run_multihost(torch, subst_np, S) -> float:
+    """align_pairs_multihost in two processes (gloo), both ranks on
+    cuda:0: each rank's result equal to align_pairs_batched here.
+    Returns the wall seconds of the two processes."""
+    import socket
+
+    from gpuseqalign_tpu_torch.bench.throughput import synth_pairs
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
+    from gpuseqalign_tpu_torch.parallel import align_pairs_batched
+
+    os.makedirs(OUT, exist_ok=True)
+    worker = os.path.join(OUT, "multihost_worker.py")
+    with open(worker, "w") as f:
+        f.write(MULTIHOST_WORKER)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(rank), str(port), HERE,
+         os.path.join(RESRC, "subst.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in (0, 1)]
+    outs = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"multihost worker exit {proc.returncode}: {stderr}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    pairs = synth_pairs(512, 100, 1500, S)
+    want = align_pairs_batched(AlignSpec.from_name("sw_ag"), subst_np, pairs,
+                               GAPO, GAPE["sw_ag"], quantum="pow2")
+    expect = [want.costs.tolist(), want.best_i.tolist(), want.best_j.tolist()]
+    if outs != [expect, expect]:
+        fail("align_pairs_multihost (2 processes) != align_pairs_batched")
+    return wall
+
+
+def giant_stream_two_bands(torch, subst_np, want) -> dict:
+    """pair_generated_1 nw_ag on two bands of the one card, where the
+    stream has a band pipeline to fill: align_giant2_stream against one
+    align_giant2 call a pair, windows alternating (sequential, stream,
+    stream, sequential, ...), each mode's every cost and best cell equal
+    to ``want`` (the D = 1 --giantSequential run's JSON). Returns the
+    median window of each mode."""
+    import numpy as np
+
+    from gpuseqalign_tpu_torch.bench.throughput import file_pairs
+    from gpuseqalign_tpu_torch.core.types import (
+        AlgParams,
+        AlgResult,
+        make_alg_input,
+    )
+    from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+    from gpuseqalign_tpu_torch.ops import banded_cuda
+    from gpuseqalign_tpu_torch.parallel import (
+        align_giant2,
+        align_giant2_stream,
+        make_mesh,
+    )
+
+    letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
+    pairs = file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters)
+    mesh = make_mesh(devices=["cuda:0"] * 2, axis_name="sp")
+    inputs = [make_alg_input(subst_np, y, x, GAPO, GAPE["nw_ag"], "nw_ag")
+              for y, x in pairs]
+    params = AlgParams({})
+    ts = {"sequential": [], "stream": []}
+    launches = {}
+    for mode in ("sequential", "stream", "stream", "sequential") * 2:
+        results = [AlgResult() for _ in inputs]
+        banded_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        if mode == "stream":
+            stats = align_giant2_stream(params, inputs, results, mesh=mesh)
+        else:
+            stats = [align_giant2(params, nw, res, mesh=mesh)
+                     for nw, res in zip(inputs, results)]
+        ts[mode].append(time.perf_counter() - t0)
+        launches[mode] = banded_cuda.LAUNCHES
+        got = ([res.align_cost for res in results],
+               [nw.best_i for nw in inputs], [nw.best_j for nw in inputs])
+        if any(stats) or got != (want["costs"], want["best_i"],
+                                 want["best_j"]):
+            fail(f"giant {mode} on two bands: statuses {stats} or results "
+                 f"differ from D 1's")
+        if launches[mode] <= 0:
+            fail(f"giant {mode} on two bands: banded_pass never launched")
+    out = {m: float(np.median(v)) for m, v in ts.items()}
+    log(f"phase giant pair_generated_1 nw_ag on two bands of one card: "
+        + "; ".join(
+            f"{m} {len(pairs) / out[m]:.2f} pairs/s (median window "
+            f"{out[m] * 1e3:.1f} ms; windows "
+            + ", ".join(f"{v * 1e3:.1f}" for v in ts[m])
+            + f" ms; {launches[m]} launches)" for m in ts)
+        + "; costs and best cells equal to D 1's")
+    return out
+
+
+def phase_giant(torch, cli_main, subst, subst_np, S) -> dict:
+    """The giant phase (7 in the module docstring). Returns its numbers;
+    "launches" counts K7's launches in the 100000^2 D = 1 align_giant2
+    calls, the phase's main path."""
+    from gpuseqalign_tpu_torch.bench import throughput
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
+    from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+    from gpuseqalign_tpu_torch.ops import banded_cuda
+    from gpuseqalign_tpu_torch.parallel import align_pairs_batched, make_mesh
+
+    r = {}
+    t0 = time.perf_counter()
+    params = {"cpu1_st_row": {}, "tpu9_giant_mlsp": {}}
+    for spec in SPECS:
+        banded_cuda.LAUNCHES = 0
+        rows = run_cli(cli_main, spec, params, cli_pairs(), f"giant_{spec}")
+        if banded_cuda.LAUNCHES <= 0:
+            fail(f"giant cli {spec}: banded_pass never launched")
+        calc = sum(float(x["align.calc"]) for x in rows
+                   if x["alg_name"] == "tpu9_giant_mlsp")
+        log(f"phase giant cli {spec}: {len(rows)} rows err_step 0, "
+            f"{banded_cuda.LAUNCHES} banded_pass launches, tpu9 align.calc "
+            f"ms summed {calc:.1f}")
+    r["cli_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    r["full"] = giant_full(torch, subst, subst_np, S)
+    r["launches"] = r["full"]["launches"]
+    r["full_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    r["bands"] = giant_bands(torch, subst, S, FULL_N, SPECS, (2, 4))
+    r["bands"].update(giant_bands(torch, subst, S, GIANT_N, ("nw_ag",),
+                                  (2, 4)))
+    r["bands_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    os.makedirs(OUT, exist_ok=True)
+    for flag in ("--giantStream", "--giantSequential"):
+        out_json = os.path.join(OUT, f"throughput_giant_{flag[7:]}.json")
+        banded_cuda.LAUNCHES = 0
+        rc = throughput.main([
+            "--seqPath", SEQS,
+            "--substPath", os.path.join(RESRC, "subst.json"),
+            "--seqPairPath", THROUGHPUT_RUNS[0][1][1], "--algKind", "nw_ag",
+            "--gapoCost", str(GAPO), "--gapeCost", str(GAPE["nw_ag"]),
+            "--verify", "5", "--repeat", "3", "--jsonPath", out_json, flag])
+        if rc != 0 or banded_cuda.LAUNCHES <= 0:
+            fail(f"throughput {flag}: exit {rc}, {banded_cuda.LAUNCHES} "
+                 f"banded_pass launches")
+        with open(out_json) as f:
+            res = json.load(f)
+        r[flag[2:]] = res["pairs_per_s"]
+        log(f"phase giant {flag} pair_generated_1 nw_ag ({res['mode']}, D "
+            f"{res['bands']}): {res['pairs']} pairs, "
+            f"{res['pairs_per_s']:.2f} pairs/s, {res['gcups']:.3f} "
+            f"GCUPS (live cells) over the median window "
+            f"{res['seconds'] * 1e3:.1f} ms (windows "
+            + ", ".join(f"{v * 1e3:.1f}" for v in res["seconds_all"])
+            + "), oracle check of 5 pairs ok")
+    r["stream_D2"] = giant_stream_two_bands(torch, subst_np, res)
+    r["streams_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
+    pairs = throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    for spec in ("nw_ag", "sw_ag"):
+        aspec = AlignSpec.from_name(spec)
+        one = align_pairs_batched(aspec, subst_np, pairs, GAPO, GAPE[spec],
+                                  quantum="pow2")
+        two = align_pairs_batched(aspec, subst_np, pairs, GAPO, GAPE[spec],
+                                  quantum="pow2", mesh=mesh)
+        for k in ("costs", "best_i", "best_j"):
+            if not (getattr(one, k) == getattr(two, k)).all():
+                fail(f"batch mesh of 2 != no mesh: {spec} {k}")
+    log("phase giant: align_pairs_batched on a two-entry mesh equals no "
+        "mesh on pair_generated_1 (nw_ag, sw_ag)")
+    r["multihost_s"] = run_multihost(torch, subst_np, S)
+    log(f"phase giant: align_pairs_multihost in two processes on cuda:0 "
+        f"equals align_pairs_batched (512 synthetic pairs, sw_ag) in "
+        f"{r['multihost_s']:.1f} s")
+    r["mesh_s"] = time.perf_counter() - t0
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -750,7 +1341,12 @@ def main() -> int:
 
     from gpuseqalign_tpu_torch.bench.cli import main as cli_main
     from gpuseqalign_tpu_torch.io.subst import parse_subst_file
-    from gpuseqalign_tpu_torch.ops import build, dense_cuda, mlsp_cuda
+    from gpuseqalign_tpu_torch.ops import (
+        banded_cuda,
+        build,
+        dense_cuda,
+        mlsp_cuda,
+    )
     from gpuseqalign_tpu_torch.ops.dense_plain import rowscan_dense
     from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
 
@@ -773,14 +1369,20 @@ def main() -> int:
     S = subst.shape[0]
 
     # 2. kernels against their plain versions, on the card
+    banded = {}
     if "kernels" in phases:
         t0 = time.perf_counter()
         n1 = check_single_kernel(torch, subst, subst_np)
         nb = check_batch_kernels(torch, subst)
         nd = check_dense_kernel(torch, subst, subst_np)
+        nk7 = check_banded_kernel(torch, subst, subst_np)
         times["kernels"] = time.perf_counter() - t0
-        log(f"phase kernels: {n1} mlsp_fill cases, {nb} batch cases and "
-            f"{nd} dense_fill cases bit-exact in {times['kernels']:.1f} s")
+        log(f"phase kernels: {n1} mlsp_fill cases, {nb} batch cases, "
+            f"{nd} dense_fill cases and {nk7} banded_pass cases bit-exact "
+            f"in {times['kernels']:.1f} s")
+        t0 = time.perf_counter()
+        banded = time_banded(torch, subst, subst_np, FULL_N, S)
+        times["kernels_banded_timing"] = time.perf_counter() - t0
 
     # 3. the single-pair path through the CLI, every spec
     params = {
@@ -791,12 +1393,7 @@ def main() -> int:
     cli_launches = {}
     if "cli" in phases:
         t0 = time.perf_counter()
-        with open(os.path.join(RESRC, "pair_debug.txt")) as f:
-            debug = [line.strip() for line in f if line.strip()]
-        pairs = ["len1 len1", "len31 len33", "len196 len256",
-                 "len512[2:] len728[:726]"]
-        pairs += [p for p in debug if p.split()[0] in ("len1", "len2")
-                  or "[" in p]
+        pairs = cli_pairs()
         runs = [(spec, dict(params, **DENSE_PARAMS), f"cli_{spec}")
                 for spec in SPECS]
         runs.append(("nw_lg", os.path.join(RESRC, "param_best.json"),
@@ -824,25 +1421,28 @@ def main() -> int:
     # 4. full size: the release pair through the CLI (nw_lg) ...
     per_spec, dense_spec = {}, {}
     max_err = 0
-    main_launches = dense_launches = 0
+    main_launches = dense_launches = release_k7 = 0
     if "full" in phases:
         t0 = time.perf_counter()
         with open(RELEASE_PAIRS) as f:
             release = [line.strip() for line in f if line.strip()]
-        mlsp_cuda.LAUNCHES = dense_cuda.LAUNCHES = 0
+        mlsp_cuda.LAUNCHES = dense_cuda.LAUNCHES = banded_cuda.LAUNCHES = 0
         rows = run_cli(cli_main, "nw_lg",
                        {k: params[k] for k in ("cpu1_st_row",
                                                "tpu7_pallas_mlsp")}
-                       | {"tpu3_pallas_dense": {}},
+                       | {"tpu3_pallas_dense": {}, "tpu9_giant_mlsp": {}},
                        release, "release_nw_lg")
         main_launches = mlsp_cuda.LAUNCHES
         dense_launches = dense_cuda.LAUNCHES
-        if main_launches <= 0 or dense_launches <= 0:
+        release_k7 = banded_cuda.LAUNCHES
+        if min(main_launches, dense_launches, release_k7) <= 0:
             fail(f"release nw_lg: a kernel was never launched (mlsp_fill "
-                 f"{main_launches}, dense_fill {dense_launches})")
+                 f"{main_launches}, dense_fill {dense_launches}, "
+                 f"banded_pass {release_k7})")
         ref_row = next(r for r in rows if r["alg_name"] == "cpu1_st_row")
         for alg, n_launch in (("tpu7_pallas_mlsp", main_launches),
-                              ("tpu3_pallas_dense", dense_launches)):
+                              ("tpu3_pallas_dense", dense_launches),
+                              ("tpu9_giant_mlsp", release_k7)):
             row = next(r for r in rows if r["alg_name"] == alg)
             log(f"phase full-size cli nw_lg {release[0]} {alg}: cost "
                 f"{row['align_cost']} (cpu1_st_row {ref_row['align_cost']}"
@@ -940,6 +1540,17 @@ def main() -> int:
         trace_synth_windows(torch, subst_np, S)
         times["throughput"] = time.perf_counter() - t0
 
+    # 7. the giant-pair engine
+    giant = {}
+    if "giant" in phases:
+        t0 = time.perf_counter()
+        giant = phase_giant(torch, cli_main, subst, subst_np, S)
+        times["giant"] = time.perf_counter() - t0
+        log(f"phase giant steps s: cli {giant['cli_s']:.1f}, 100000^2 D 1 "
+            f"{giant['full_s']:.1f}, D 2/4 {giant['bands_s']:.1f}, streams "
+            f"{giant['streams_s']:.1f}, batch mesh and multihost "
+            f"{giant['mesh_s']:.1f}")
+
     log("phase times s: " + json.dumps({k: round(v, 2)
                                           for k, v in times.items()}))
     if phases != set(PHASES):
@@ -947,6 +1558,7 @@ def main() -> int:
         return 0
     head = per_spec["nw_ag"]
     dense_head = dense_spec["nw_ag"]
+    banded_head = banded["nw_ag"]
     k5 = runs["pair_generated_1_nw_ag"]["kernels"]["mlsp_fill_batch"]
     k6 = runs["synth_16384_nw_ag"]["kernels"]["mlsp_tiny"]
     print(json.dumps({"kernels": [{
@@ -996,6 +1608,19 @@ def main() -> int:
         "plain_ms": dense_head["plain_ms"],
         "bound_ms": dense_head["bound_ms"],
         "bound_by": dense_head["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "banded_pass",
+        "route": "cuda",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_fill.cu",
+        "replaces": "gpuseqalign_tpu/ops/pallas_banded.py:61",
+        "launches": giant["launches"],
+        "max_abs_err": max(v["max_abs_err"] for v in (
+            *banded.values(), *giant["full"]["specs"].values())),
+        "ms": banded_head["ms"],
+        "plain_ms": banded_head["plain_ms"],
+        "bound_ms": banded_head["bound_ms"],
+        "bound_by": banded_head["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

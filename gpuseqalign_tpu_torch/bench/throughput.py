@@ -1,20 +1,32 @@
-"""Batch throughput benchmark: aligned pairs/s on one CUDA card.
+"""Batch throughput benchmark: aligned pairs/s on CUDA cards.
 
 Aligns every pair of a pair file (or of a seeded synthetic set) through the
 batch engine (``parallel/batch.py``: shape-bucketed, one kernel per
-bucket) and reports pairs/s and aggregate GCUPS (live cells) over the
-median of --repeat timed windows, beside the best window and every
-window's time. Costs are verified against the CPU oracle for --verify
-sampled pairs. Each timed window ends with ``torch.cuda.synchronize()``;
-a warm-up call first builds the kernels, so nvcc is never timed.
+bucket; over a mesh of --devices entries when given) and reports pairs/s
+and aggregate GCUPS (live cells) over the median of --repeat timed
+windows, beside the best window and every window's time. Costs are
+verified against the CPU oracle for --verify sampled pairs. Each timed
+window ends with a synchronise of the devices; a warm-up call first builds
+the kernels, so nvcc is never timed.
+
+--giantStream routes the pair list through the giant-pair engine instead,
+as one pipelined stream (``parallel/giant2.align_giant2_stream``) over a
+mesh of --devices bands; --giantSequential is its baseline, one
+``align_giant2`` call per pair on the same mesh. The stream pads every
+pair to the widest band to pay the band pipeline's fill and drain once,
+so with one band (the default), which has no pipeline, --giantStream
+takes one call a pair too.
 
 Usage:
     python -m gpuseqalign_tpu_torch.bench.throughput \\
         --seqPath resrc/seq_generated.fa --seqPairPath resrc/pair_generated_1.txt \\
-        [--algKind nw_lg] [--quantum pow2] [--verify 5] [--jsonPath out.json]
+        [--algKind nw_lg] [--quantum pow2] [--verify 5] \\
+        [--jsonPath out.json] [--devices N] \\
+        [--giantStream | --giantSequential]
 
-``main(argv, device=None)`` runs on the card and raises without one; pass
-``device="cpu"`` to run the kernels' plain versions on the CPU.
+``main(argv, device=None)`` runs on the cards and raises without one; pass
+``device="cpu"`` to run the kernels' plain versions on the CPU (a mesh of
+--devices entries then names the CPU that many times).
 """
 
 from __future__ import annotations
@@ -115,13 +127,16 @@ def _run_streaming(args, spec, subst, letter_map, dev) -> int:
     # pairs/s.
     t = 0.0
 
+    mesh = _mesh(args.devices, dev, "pairs") if args.devices else None
+
     def run_chunk(pairs):
         nonlocal t
         t0 = time.perf_counter()
-        out = align_pairs_batched(spec, subst, pairs, args.gapoCost,
-                                  args.gapeCost, quantum=args.quantum,
-                                  device=dev)
-        synchronize(dev)
+        out = align_pairs_batched(
+            spec, subst, pairs, args.gapoCost, args.gapeCost,
+            quantum=args.quantum, device=None if mesh else dev, mesh=mesh)
+        for d in mesh.devices if mesh else (dev,):
+            synchronize(d)
         t += time.perf_counter() - t0
         return out
 
@@ -151,6 +166,80 @@ def _run_streaming(args, spec, subst, letter_map, dev) -> int:
     return 1 if n_bad else 0
 
 
+def _mesh(n: int, dev: torch.device, axis_name: str):
+    """A mesh of n entries: the first n cards, or the CPU n times."""
+    from ..parallel import make_mesh
+
+    if dev.type == "cpu":
+        return make_mesh(devices=[dev] * n, axis_name=axis_name)
+    return make_mesh(n, axis_name=axis_name)
+
+
+def _run_giant_stream(args, spec, subst, pairs, dev,
+                      sequential: bool = False) -> int:
+    """The pair list through the giant-pair engine on a mesh of
+    --devices bands: one pipelined stream (``align_giant2_stream``) when
+    the mesh has D > 1 bands, else (or when ``sequential``) one
+    ``align_giant2`` call per pair. Pairs/s over the median of --repeat
+    windows, each ending with a synchronise."""
+    from ..core.types import AlgParams, AlgResult, Status, make_alg_input
+    from ..parallel import align_giant2, align_giant2_stream
+
+    mesh = _mesh(args.devices or 1, dev, "sp")
+    inputs = [make_alg_input(subst, y, x, args.gapoCost, args.gapeCost,
+                             args.algKind, device=str(dev))
+              for y, x in pairs]
+    params = AlgParams({})
+    stream = not sequential and mesh.size > 1
+
+    def run():
+        results = [AlgResult() for _ in inputs]
+        if not stream:
+            stats = [align_giant2(params, nw, res, mesh=mesh)
+                     for nw, res in zip(inputs, results)]
+        else:
+            stats = align_giant2_stream(params, inputs, results, mesh=mesh)
+        if any(s != Status.success for s in stats):
+            raise RuntimeError(f"giant statuses: {stats}")
+        return results
+
+    results = run()  # warm-up: builds and loads the kernel
+    ts = []
+    for _ in range(args.repeat):
+        t0 = time.perf_counter()
+        results = run()
+        ts.append(time.perf_counter() - t0)
+    t = float(np.median(ts))
+    costs = np.array([r.align_cost for r in results], np.int32)
+    n_bad = 0
+    if args.verify:
+        idxs = np.linspace(0, len(pairs) - 1, min(args.verify, len(pairs)))
+        n_bad = _verify(args, spec, subst, pairs, costs,
+                        sorted({int(v) for v in idxs}))
+    cells = live_cells(pairs)
+    mode = "giant stream" if stream else "giant sequential"
+    print(
+        f"{args.algKind} ({mode}, D={mesh.size}): {len(pairs)} pairs in "
+        f"{t * 1e3:.1f} ms (median of {len(ts)}; best {min(ts) * 1e3:.1f} "
+        f"ms; windows " + ", ".join(f"{v * 1e3:.1f}" for v in ts)
+        + f" ms) -> {len(pairs) / t:.1f} pairs/s, {cells / t / 1e9:.2f} "
+        f"GCUPS agg" + (f", {n_bad} verify mismatches" if n_bad
+                        else ", verify ok")
+    )
+    if args.jsonPath:
+        with open(args.jsonPath, "w") as f:
+            json.dump({
+                "alg_kind": args.algKind, "device": str(dev), "mode": mode,
+                "bands": mesh.size, "pairs": len(pairs), "live_cells": cells,
+                "seconds": t, "seconds_best": min(ts), "seconds_all": ts,
+                "pairs_per_s": len(pairs) / t, "gcups": cells / t / 1e9,
+                "verify_mismatches": n_bad, "costs": costs.tolist(),
+                "best_i": [nw.best_i for nw in inputs],
+                "best_j": [nw.best_j for nw in inputs],
+            }, f)
+    return 1 if n_bad else 0
+
+
 def main(argv: Optional[List[str]] = None,
          device: Optional[Union[str, torch.device]] = None) -> int:
     import argparse
@@ -167,6 +256,10 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--gapoCost", type=int, default=-11)
     ap.add_argument("--gapeCost", type=int, default=-2)
     ap.add_argument("--algKind", default="nw_lg")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="mesh size: the batch engine shares each bucket "
+                         "over the first N cards (0 = one device); the "
+                         "giant engine runs N bands (0 = 1)")
     ap.add_argument("--quantum", default="pow2",
                     help='int (linear padding) or "pow2" (geometric)')
     ap.add_argument("--repeat", type=int, default=5,
@@ -183,6 +276,15 @@ def main(argv: Optional[List[str]] = None,
                          "uniform in [LMIN, LMAX] instead of a pair "
                          "file — the many-small-pairs workload of the "
                          "tiny-pair kernel")
+    ap.add_argument("--giantStream", action="store_true",
+                    help="route the pair list through ONE pipelined "
+                         "giant-pair fill (align_giant2_stream) on a "
+                         "--devices band mesh instead of the batch engine, "
+                         "for streams of pairs too large to batch; with "
+                         "one band, one align_giant2 call per pair")
+    ap.add_argument("--giantSequential", action="store_true",
+                    help="baseline of --giantStream: one align_giant2 call "
+                         "per pair on the same mesh")
     ap.add_argument("--jsonPath", default="",
                     help="also write the timing and every pair's cost, "
                          "best_i and best_j to this JSON file")
@@ -207,12 +309,17 @@ def main(argv: Optional[List[str]] = None,
         pairs = file_pairs(args.seqPath, args.seqPairPath,
                            subst_data.letter_map)
     cells = live_cells(pairs)
+    if args.giantStream or args.giantSequential:
+        return _run_giant_stream(args, spec, subst, pairs, dev,
+                                 sequential=args.giantSequential)
+    mesh = _mesh(args.devices, dev, "pairs") if args.devices else None
 
     def run():
-        out = align_pairs_batched(spec, subst, pairs, args.gapoCost,
-                                  args.gapeCost, quantum=args.quantum,
-                                  device=dev)
-        synchronize(dev)
+        out = align_pairs_batched(
+            spec, subst, pairs, args.gapoCost, args.gapeCost,
+            quantum=args.quantum, device=None if mesh else dev, mesh=mesh)
+        for d in mesh.devices if mesh else (dev,):
+            synchronize(d)
         return out
 
     out = run()  # warm-up: builds and loads the kernels

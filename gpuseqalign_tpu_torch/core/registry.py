@@ -25,7 +25,11 @@ Alias mapping (reference -> this port):
   NwAlign_Gpu8_Mlsp_DiagDiag -> tpu7_pallas_mlsp
   NwAlign_Gpu9_Mlsp_DiagDiagDiag -> tpu7_pallas_mlsp
 
-Not ported yet, so unknown to the CLI: tpu9_giant_mlsp.
+Beside them, with no reference name, ``tpu9_giant_mlsp``: the giant-pair
+engine (``parallel/giant2.align_giant2``), one pair's columns in a band
+on the input's own device (more bands, with a halo between neighbours,
+take an explicit mesh), filled by the CUDA banded kernel (its plain
+version on the CPU), every spec on every device.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ def get_algorithm_map() -> Dict[str, Algorithm]:
     """Build the name -> Algorithm map (insertion-ordered)."""
     from ..models import cpu_algs
     from ..ops import dense_kernels, mlsp_kernels
+    from ..parallel import giant2
     from ..trace import plain, sparse
 
     def dense(align_fn: AlignFn) -> Algorithm:
@@ -87,6 +92,11 @@ def get_algorithm_map() -> Dict[str, Algorithm]:
     algs["tpu2_xla_rowscan"] = dense(dense_kernels.align_xla_rowscan)
     algs["tpu3_pallas_dense"] = dense(dense_kernels.align_dense)
     algs["tpu7_pallas_mlsp"] = mlsp(mlsp_kernels.align_mlsp)
+
+    # Giant-pair engine (an extension; the reference is single-GPU). The
+    # JAX package takes its banded kernel on a TPU and the portable XLA
+    # engine elsewhere; here every device takes the banded kernel.
+    algs["tpu9_giant_mlsp"] = mlsp(giant2.align_giant2)
 
     # Reference-name aliases (same objects).
     aliases = {

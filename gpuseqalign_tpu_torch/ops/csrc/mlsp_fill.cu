@@ -1,11 +1,14 @@
 // mlsp_fill.cu — tile-diagonal DP fill for NW/SW x linear/affine: sparse
 // (mlsp) tile headers, or the dense H matrix.
 //
-// Replaces three TPU kernels of gpuseqalign_tpu/ops/pallas_wavefront2.py
-// that share one body (_make_kernel): pallas_mlsp_v2, one pair
-// (mlsp_fill_diag), pallas_mlsp_batch_v2, a bucket of same-shape pairs
-// (mlsp_fill_batch_diag, _make_kernel(batch=True)), and pallas_dense_v2,
-// the full H of one pair (mlsp_fill_dense_diag, _make_kernel(dense=True)).
+// Replaces four TPU kernels that share one body
+// (gpuseqalign_tpu/ops/pallas_wavefront2.py::_make_kernel):
+// pallas_mlsp_v2, one pair (mlsp_fill_diag), pallas_mlsp_batch_v2, a
+// bucket of same-shape pairs (mlsp_fill_batch_diag, _make_kernel(batch=
+// True)), pallas_dense_v2, the full H of one pair (mlsp_fill_dense_diag,
+// _make_kernel(dense=True)), and gpuseqalign_tpu/ops/pallas_banded.py::
+// banded_pass, one pass or more over one column band of a giant pair
+// (mlsp_fill_banded_diag, _make_kernel(banded=True)).
 // The sparse entries compute the same thing — the DP matrix's tile
 // headers, not the matrix — but not the TPU's layout (lanes = rows, the
 // K-chain echelon, packed substitution planes): the design is the
@@ -38,14 +41,26 @@
 //     H[gi * adjc + gj], with 64-bit offsets (H passes 2^31 cells near
 //     46k x 46k). Padded cells are computed, never stored; the SW best is
 //     left to the caller, which scans H.
+//   * The banded entry runs the body on a band's own header grid, one row
+//     and one column wider: the caller writes the band's top row (the
+//     previous pass's last row) and its left column (the halo from the
+//     band to its left, E too for affine) where K1 has the analytic edge,
+//     and every tile also stores the two outputs K1 drops, the right
+//     column of the last tile column (the next band's halo) and the
+//     bottom row of the last tile row (the next pass's carry). Lengths
+//     and the SW mask are band-local; offsets stay 64-bit.
 //
 // What bounds the sparse entries on an H100: not bytes (O(rows*cols/tile)
 // header traffic) but the serial dependency chain of the DP — each
 // anti-diagonal step is a shuffle, a few int32 max/add and a block
 // barrier, and only min(trows, tcols) tiles run at once, so most SMs idle
 // on the short diagonals. The int32 operation count per cell is their
-// work bound (PERF.md). The dense entry's bound is bytes: 4 per cell of
-// H. Its stores are one cell per thread per step, a row pitch apart
+// work bound (PERF.md); the banded entry is bound the same way, a serial
+// chain per tile and int32 operations over every padded cell of the
+// band (the K7 note: making it fast, a pass in flight per band on a
+// persistent grid, is later work). The dense entry's bound is bytes: 4
+// per cell of H. Its stores are one cell per thread per step, a row pitch
+// apart
 // within a warp (uncoalesced; L2 merges a row's neighbouring cells from
 // consecutive steps before they reach device memory); the same serial
 // chain still sets its time. This design keeps every dependency on chip
@@ -121,7 +136,7 @@ __device__ Params pair_params(Params p, int b) {
   return p;
 }
 
-template <bool SW, bool AFFINE, bool BATCH, bool DENSE>
+template <bool SW, bool AFFINE, bool BATCH, bool DENSE, bool BANDED>
 __global__ void __launch_bounds__(kMaxThreads)
 mlsp_tile_kernel(Params args, int d, int it_lo) {
   extern __shared__ int smem[];
@@ -143,6 +158,8 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
 
   const size_t width = (size_t)p.tcols * tw + 1;
   const size_t col0 = (size_t)jt * tw;
+  // A band's header grid keeps one more column, its right edge.
+  const int hstride = p.tcols + (BANDED ? 1 : 0);
   const int* hrow_in = p.hrows + (size_t)it * width + col0;
   for (int k = t; k < p.S * p.S; k += nt) s_subst[k] = p.subst[k];
   for (int j = t; j <= tw; j += nt) {
@@ -162,7 +179,7 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
     const int gi = it * th + li;   // global DP row
     // hcols[it, li-1, jt]: this row's left header (and the right column's
     // slot is the next element).
-    const size_t hc = ((size_t)it * th + (li - 1)) * p.tcols + jt;
+    const size_t hc = ((size_t)it * th + (li - 1)) * hstride + jt;
 
     const int* srow = s_subst;
     int h_left = 0, e_left = kNegInf, diag = 0;
@@ -170,7 +187,7 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
       srow = s_subst + p.y[gi] * p.S;
       h_left = p.hcols[hc];
       if (AFFINE) e_left = p.ecols[hc];
-      diag = li == 1 ? hrow_in[0] : p.hcols[hc - p.tcols];
+      diag = li == 1 ? hrow_in[0] : p.hcols[hc - hstride];
     }
     int h_out = 0, f_out = 0;  // this thread's cell of the previous step
     const int nsteps = nr + tw - 1;
@@ -214,7 +231,7 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
         diag = up_h;
         h_left = h;
         h_out = h;
-        if (j == tw && jt + 1 < p.tcols) {
+        if (j == tw && (BANDED || jt + 1 < p.tcols)) {
           p.hcols[hc + 1] = h;
           if (AFFINE) p.ecols[hc + 1] = e_left;
         }
@@ -222,7 +239,7 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
           if (!last_group) {
             top[j] = h;
             if (AFFINE) ftop[j] = f_out;
-          } else if (it + 1 < p.trows) {
+          } else if (BANDED || it + 1 < p.trows) {
             const size_t o = (size_t)(it + 1) * width + col0 + j;
             p.hrows[o] = h;
             if (AFFINE) p.frows[o] = f_out;
@@ -262,7 +279,7 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
   }
 }
 
-template <bool SW, bool AFFINE, bool BATCH, bool DENSE>
+template <bool SW, bool AFFINE, bool BATCH, bool DENSE, bool BANDED>
 int launch(const Params& p, int d, int npairs, cudaStream_t stream) {
   const int it_lo = std::max(0, d - p.tcols + 1);
   const int it_hi = std::min(d, p.trows - 1);
@@ -270,21 +287,23 @@ int launch(const Params& p, int d, int npairs, cudaStream_t stream) {
   size_t words = fixed_smem_words(p.S, nt, SW);
   if (!p.scratch) words += top_words(p.tw, AFFINE);
   const dim3 grid(it_hi - it_lo + 1, npairs);
-  mlsp_tile_kernel<SW, AFFINE, BATCH, DENSE>
+  mlsp_tile_kernel<SW, AFFINE, BATCH, DENSE, BANDED>
       <<<grid, nt, words * sizeof(int), stream>>>(p, d, it_lo);
   return (int)cudaGetLastError();
 }
 
-template <bool BATCH, bool DENSE>
+template <bool BATCH, bool DENSE, bool BANDED>
 int dispatch(int sw, int affine, const Params& p, int d, int npairs,
              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (sw) {
-    return affine ? launch<true, true, BATCH, DENSE>(p, d, npairs, st)
-                  : launch<true, false, BATCH, DENSE>(p, d, npairs, st);
+    return affine
+               ? launch<true, true, BATCH, DENSE, BANDED>(p, d, npairs, st)
+               : launch<true, false, BATCH, DENSE, BANDED>(p, d, npairs, st);
   }
-  return affine ? launch<false, true, BATCH, DENSE>(p, d, npairs, st)
-                : launch<false, false, BATCH, DENSE>(p, d, npairs, st);
+  return affine
+             ? launch<false, true, BATCH, DENSE, BANDED>(p, d, npairs, st)
+             : launch<false, false, BATCH, DENSE, BANDED>(p, d, npairs, st);
 }
 
 }  // namespace
@@ -321,7 +340,7 @@ int mlsp_fill_diag(int sw, int affine, const int* subst, int S, const int* y,
     return (int)cudaErrorInvalidValue;
   Params p{subst, y,     x,   hrows, hcols, frows, ecols, tbest, scratch,
            S,     gapo,  gape, adjr, adjc,  th,    tw,    trows, tcols};
-  return dispatch<false, false>(sw, affine, p, d, 1, stream);
+  return dispatch<false, false, false>(sw, affine, p, d, 1, stream);
 }
 
 // The batched fill: the tiles of anti-diagonal d of every pair of a bucket
@@ -342,7 +361,7 @@ int mlsp_fill_batch_diag(int sw, int affine, const int* subst, int S,
   Params p{subst, ys,   xs,   hrows, hcols, frows, ecols, tbest, scratch,
            S,     gapo, gape, 0,     0,     th,    tw,    trows, tcols,
            adjrs, adjcs, cost};
-  return dispatch<true, false>(sw, affine, p, d, npairs, stream);
+  return dispatch<true, false, false>(sw, affine, p, d, npairs, stream);
 }
 
 // The dense fill: the tiles of anti-diagonal d of one pair, as
@@ -364,7 +383,29 @@ int mlsp_fill_dense_diag(int sw, int affine, const int* subst, int S,
   Params p{subst, y,     x,    hrows, hcols, frows,   ecols,   nullptr,
            scratch, S,   gapo, gape,  adjr,  adjc,    th,      tw,
            trows, tcols, nullptr, nullptr, nullptr, H};
-  return dispatch<false, true>(sw, affine, p, d, 1, stream);
+  return dispatch<false, true, false>(sw, affine, p, d, 1, stream);
+}
+
+// The banded fill (K7): the tiles of anti-diagonal d of one column band
+// of trows tile rows (one pass or more) and tcols tile columns. The grids
+// are one wider than mlsp_fill_diag's: hrows/frows (trows + 1, 1 + cols),
+// hcols/ecols (trows, th, tcols + 1). The caller writes the band's inputs
+// in place of the analytic edge: its top row (and F) into row 0 and its
+// left column (and E) into column 0 of hrows and hcols. Every tile stores
+// its bottom row and its right column, so row trows is the next pass's
+// carry and hcols[..., tcols] the next band's halo. adjr and adjc are
+// band-local (adjc <= 1 + cols); tbest holds band-local (v, i, j).
+int mlsp_fill_banded_diag(int sw, int affine, const int* subst, int S,
+                          const int* y, const int* x, int gapo, int gape,
+                          int adjr, int adjc, int th, int tw, int trows,
+                          int tcols, int d, int* hrows, int* hcols,
+                          int* frows, int* ecols, int* tbest, int* scratch,
+                          void* stream) {
+  if (!valid_args(sw, affine, S, th, tw, trows, tcols, d, scratch))
+    return (int)cudaErrorInvalidValue;
+  Params p{subst, y,     x,   hrows, hcols, frows, ecols, tbest, scratch,
+           S,     gapo,  gape, adjr, adjc,  th,    tw,    trows, tcols};
+  return dispatch<false, false, true>(sw, affine, p, d, 1, stream);
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@ returns the same outputs. On a CUDA tensor it launches the kernel of
 current stream, no host sync between launches) or raises; it uses the
 plain version only for tensors that lie on the CPU. ``load_lib``,
 ``alloc_headers`` and ``tile_best`` serve the batched entry of the same
-library too (``batch_cuda.mlsp_fill_batch``), and the first two its dense
-entry (``dense_cuda.dense_fill``).
+library too (``batch_cuda.mlsp_fill_batch``), the first two its dense
+entry (``dense_cuda.dense_fill``), and ``load_lib`` and ``tile_best`` its
+banded entry (``banded_cuda.banded_pass``).
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main path
 went through the kernel.
@@ -62,6 +63,8 @@ def load_lib() -> ctypes.CDLL:
             p, p,                      # scratch, stream
         ]
         lib.mlsp_fill_dense_diag.restype = ctypes.c_int
+        lib.mlsp_fill_banded_diag.argtypes = lib.mlsp_fill_diag.argtypes
+        lib.mlsp_fill_banded_diag.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -62,35 +62,34 @@ def _mlsp_store(nw: AlgInput, res: AlgResult, hrows: np.ndarray,
     nw.tile_hcol_len = 1 + tile_h
 
     n_tiles = trows * tcols
-    hrow_mat = np.zeros((n_tiles, 1 + tile_w), dtype=np.int32)
-    hcol_mat = np.zeros((n_tiles, 1 + tile_h), dtype=np.int32)
     affine = frows is not None
-    if affine:
-        frow_mat = np.zeros((n_tiles, 1 + tile_w), dtype=np.int32)
-        ecol_mat = np.zeros((n_tiles, 1 + tile_h), dtype=np.int32)
 
-    # hrows[it] = padded row it*tile_h (width >= 1 + tcols*tile_w).
+    # hrows[it] = padded row it*tile_h (width >= 1 + tcols*tile_w), and
+    # tile (it, jt)'s top row is its tile_w + 1 values from jt*tile_w: a
+    # strided window view, copied once into the tile-major mat.
     # hcols[it, r, jt] = H[it*tile_h + 1 + r, jt*tile_w].
-    for it in range(trows):
-        row = hrows[it]
-        for jt in range(tcols):
-            k = it * tcols + jt
-            hrow_mat[k] = row[jt * tile_w: jt * tile_w + tile_w + 1]
-            hcol_mat[k, 0] = row[jt * tile_w]
-            hcol_mat[k, 1:] = hcols[it, :, jt]
-            if affine:
-                frow_mat[k] = frows[it][jt * tile_w: jt * tile_w + tile_w + 1]
-                ecol_mat[k, 1:] = ecols[it, :, jt]
+    def tile_rows(rows):
+        win = np.lib.stride_tricks.sliding_window_view(
+            rows[:trows, :tcols * tile_w + 1], tile_w + 1, axis=1)
+        mat = np.empty((trows, tcols, tile_w + 1), dtype=np.int32)
+        mat[...] = win[:, ::tile_w]
+        return mat.reshape(n_tiles, tile_w + 1)
 
-    nw.tileHrowMat = hrow_mat
-    nw.tileHcolMat = hcol_mat
+    def tile_cols(first, cols):
+        mat = np.empty((n_tiles, 1 + tile_h), dtype=np.int32)
+        mat[:, 0] = first
+        mat[:, 1:] = np.swapaxes(cols[:trows, :, :tcols], 1, 2).reshape(
+            n_tiles, tile_h)
+        return mat
+
+    nw.tileHrowMat = tile_rows(hrows)
+    nw.tileHcolMat = tile_cols(nw.tileHrowMat[:, 0], hcols)
     if affine:
+        nw.tileFrowMat = tile_rows(frows)
         # E of a tile's top-left corner belongs to the header row above it;
         # it is never read by the within-tile recompute (row 0 is given),
         # so the corner element only needs a consistent value.
-        ecol_mat[:, 0] = np.int32(NEG_INF_I32)
-        nw.tileFrowMat = frow_mat
-        nw.tileEcolMat = ecol_mat
+        nw.tileEcolMat = tile_cols(np.int32(NEG_INF_I32), ecols)
     res.update_peak_mem(nw)
 
     if best is not None:

@@ -64,7 +64,8 @@ def edge_col(i: torch.Tensor, gapo: int, gape: int, kind: str,
 
 def row_step(hprev: torch.Tensor, fprev: torch.Tensor, srow: torch.Tensor,
              first: torch.Tensor, gapo: int, gape: int, goffs: torch.Tensor,
-             geoffs: torch.Tensor, *, kind: str, gap: str):
+             geoffs: torch.Tensor, *, kind: str, gap: str,
+             efirst: "torch.Tensor | None" = None):
     """DP row i from row i-1 along the last dimension (any leading batch
     shape), the one row body of every plain fill of the port.
 
@@ -73,6 +74,11 @@ def row_step(hprev: torch.Tensor, fprev: torch.Tensor, srow: torch.Tensor,
     is H[i, 0] with a trailing dimension of 1, and ``goffs``/``geoffs`` are
     j*gapo and j*gape. Returns (H, F, E) of row i; for a linear gap F is
     ``fprev`` unchanged and E is None.
+
+    ``efirst`` (affine only) is E[i, 0], shaped like ``first``: None means
+    -inf, the matrix's own left edge; a column band passes the E of the
+    band to its left (its halo), and E[i, j] = max(E[i, 0] + j*gape, the
+    scan) for j >= 1.
     """
     is_sw = kind == "sw"
     if gap != "affine":
@@ -87,8 +93,12 @@ def row_step(hprev: torch.Tensor, fprev: torch.Tensor, srow: torch.Tensor,
     v = torch.maximum(hprev[..., :-1] + srow[..., 1:], frow[..., 1:])
     vfull = torch.cat([first, v.clamp_min(0) if is_sw else v], -1)
     m = torch.cummax(vfull + gapo - geoffs, -1).values
-    erow = torch.cat([torch.full_like(first, NEG_INF_I32),
-                      m[..., :-1] + geoffs[1:]], -1)
+    if efirst is None:
+        erow = torch.cat([torch.full_like(first, NEG_INF_I32),
+                          m[..., :-1] + geoffs[1:]], -1)
+    else:
+        erow = torch.cat([efirst, torch.maximum(m[..., :-1], efirst)
+                          + geoffs[1:]], -1)
     hrow = torch.cat([first, torch.maximum(v, erow[..., 1:])], -1)
     if is_sw:
         hrow = hrow.clamp_min(0)

@@ -1,7 +1,6 @@
-"""Batched pair-alignment engine: many pairs, one card.
+"""Batched pair-alignment engine: many pairs, one card or a mesh.
 
-Port of gpuseqalign_tpu's ``parallel/batch.py`` for one CUDA card (the
-mesh-sharded branch comes with the giant-pair slice). Pairs are bucketed by
+Port of gpuseqalign_tpu's ``parallel/batch.py``. Pairs are bucketed by
 padded shape, each bucket is stacked and copied to the card once, and
 every bucket goes through a kernel, chosen by its padded height:
 
@@ -14,7 +13,12 @@ every bucket goes through a kernel, chosen by its padded height:
 
 Pairs with an empty sequence (adjr < 2 or adjc < 2) never reach a kernel:
 their cost is the analytic edge, decided on the host. On the CPU the same
-routes run the kernels' plain versions.
+routes run the kernels' plain versions. With a mesh (``parallel/mesh.py``)
+each bucket's pairs are split into one contiguous share per mesh entry,
+each share runs the same kernel on its device, and the results are
+gathered: bit-identical to one device, since no pair's result depends on
+the others of its bucket. Unlike the JAX engine, no dummy pairs pad a
+bucket to a multiple of the mesh size.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch.profiler import record_function
 from ..core.types import AlignKind, AlignSpec, GapKind
 from ..ops import batch_cuda
 from ..utils.device import resolve_device
+from .mesh import Mesh
 
 # Buckets at least this tall take the batched tile fill, shorter ones the
 # tiny-pair fill.
@@ -168,13 +173,16 @@ def align_pairs_batched(
     gape: int = 0,
     quantum: "int | str" = 256,
     device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> BatchResult:
-    """Align many pairs (each with header element) on one device.
+    """Align many pairs (each with header element) on one device, or on
+    every entry of ``mesh``.
 
-    ``device`` None means the CUDA card (RuntimeError without one). Each
-    bucket is copied to the device once and its (cost, best) copied back
-    once; the host waits for the device only after the last bucket. The
-    host steps are torch.profiler spans named ``batch.*``.
+    ``device`` None means the CUDA card (RuntimeError without one); with a
+    mesh it must be None. Each bucket share is copied to its device once
+    and its (cost, best) copied back once; the host waits for the devices
+    only after the last bucket. The host steps are torch.profiler spans
+    named ``batch.*``.
     """
     if spec.gap == GapKind.AFFINE and (gapo > 0 or gape > 0):
         # Same domain guard as align_pallas_mlsp / the oracle: the
@@ -183,14 +191,17 @@ def align_pairs_batched(
             "affine specs require gapo <= 0 and gape <= 0 "
             f"(got gapo={gapo}, gape={gape})"
         )
-    dev = resolve_device(device)
+    if mesh is not None and device is not None:
+        raise ValueError("pass a mesh or a device, not both")
+    devs = mesh.devices if mesh is not None else (resolve_device(device),)
     n = len(pairs)
     out = np.zeros((3, n), np.int32)  # costs, best_i, best_j
     with record_function("batch.bucket_pairs"):
         buckets = bucket_pairs(pairs, quantum)
         lens = np.array([(len(y), len(x)) for y, x in pairs],
                         np.int64).reshape(n, 2)
-    subst_d = torch.from_numpy(np.ascontiguousarray(subst, np.int32)).to(dev)
+    subst_h = torch.from_numpy(np.ascontiguousarray(subst, np.int32))
+    subst_d = {dev: subst_h.to(dev) for dev in dict.fromkeys(devs)}
 
     pending = []
     for (rows_p, cols_p), idxs in buckets.items():
@@ -199,21 +210,23 @@ def align_pairs_batched(
         for k in idxs[degenerate]:
             out[0, k] = _degenerate_cost(spec, lens[k, 0], lens[k, 1],
                                          gapo, gape)
-        live = idxs[~degenerate]
-        if not live.size:
-            continue
-        with record_function("batch.stack_bucket"):
-            stacked = stack_bucket(pairs, live, rows_p, cols_p, dev)
-        with record_function("batch.bucket_scores"):
-            res = bucket_scores(spec, subst_d, *stacked, gapo, gape)
-            if dev.type == "cuda":
-                host = torch.empty(res.shape, dtype=torch.int32,
-                                   pin_memory=True)
-                res = host.copy_(res, non_blocking=True)
-        pending.append((live, res))
+        shares = np.array_split(idxs[~degenerate], len(devs))
+        for dev, live in zip(devs, shares):
+            if not live.size:
+                continue
+            with record_function("batch.stack_bucket"):
+                stacked = stack_bucket(pairs, live, rows_p, cols_p, dev)
+            with record_function("batch.bucket_scores"):
+                res = bucket_scores(spec, subst_d[dev], *stacked, gapo, gape)
+                if dev.type == "cuda":
+                    host = torch.empty(res.shape, dtype=torch.int32,
+                                       pin_memory=True)
+                    res = host.copy_(res, non_blocking=True)
+            pending.append((live, res))
     with record_function("batch.gather"):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for dev in dict.fromkeys(devs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         for live, res in pending:
             out[:, live] = res.numpy()
     return BatchResult(out[0], out[1], out[2], n_buckets=len(buckets))

@@ -95,7 +95,19 @@ def test_cli_nw_lg_matches_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("name", ["tpu9_giant_mlsp"])
 def test_cli_rejects_unported_algorithms(tmp_path, capsys, name):
-    rc, _ = _run(main, tmp_path, "nw_lg", {name: {}}, device="cpu")
+    """Every name of the JAX package is ported now, the giant engine
+    last: it runs beside the reference, and a name that neither package
+    has is still rejected."""
+    (tmp_path / "ported").mkdir()
+    rc, rows = _run(main, tmp_path / "ported", "nw_lg",
+                    {"cpu1_st_row": {}, name: {}}, device="cpu")
+    assert rc == 0
+    assert {r["alg_name"] for r in rows} == {"cpu1_st_row", name}
+    assert all(r["err_step"] == "0" for r in rows)
+    assert name in jax_algorithm_map()
+    unknown = name + "_unknown"
+    assert unknown not in jax_algorithm_map()
+    rc, _ = _run(main, tmp_path, "nw_lg", {unknown: {}}, device="cpu")
     assert rc == -1
     assert "unknown algorithm" in capsys.readouterr().err
 
@@ -115,7 +127,7 @@ def test_cli_dense_algorithms_agree_with_reference(tmp_path, name):
 
 def test_cli_loads_param_best_whole(tmp_path):
     """The reference's own parameter file, all 13 names, on a few small
-    pairs; the port's names are the JAX package's but the giant engine's."""
+    pairs; the port's names are the JAX package's, in its order."""
     best = os.path.join(RESRC, "param_best.json")
     pair_file = tmp_path / "pairs.txt"
     pair_file.write_text("len1 len1\nlen31 len33\nlen2 len128\n")
@@ -132,8 +144,7 @@ def test_cli_loads_param_best_whole(tmp_path):
     assert len({r["alg_name"] for r in rows}) == 13
     assert len(rows) == 13 * 3
     assert all(r["err_step"] == "0" for r in rows)
-    assert list(get_algorithm_map()) == [
-        n for n in jax_algorithm_map() if n != "tpu9_giant_mlsp"]
+    assert list(get_algorithm_map()) == list(jax_algorithm_map())
 
 
 def test_cli_profile_dir_writes_trace(tmp_path):

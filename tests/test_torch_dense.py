@@ -110,11 +110,11 @@ def test_dense_path_matches_jax(blosum62, name, spec, rows, cols):
 
 
 def test_aliases_match_jax():
-    """Every JAX name but the giant engine's, in the JAX map's order, and
+    """Every JAX name, the giant engine's too, in the JAX map's order, and
     each alias bound to the port's entry of the JAX alias's target."""
     jmap = jax_registry.get_algorithm_map()
     pmap = get_algorithm_map()
-    assert list(pmap) == [n for n in jmap if n != "tpu9_giant_mlsp"]
+    assert list(pmap) == list(jmap)
     for name in pmap:
         target = next(m for m in jmap if jmap[m] is jmap[name])
         assert pmap[name] is pmap[target], name

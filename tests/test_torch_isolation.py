@@ -66,7 +66,9 @@ print(json.dumps({"mods": mods, "loaded": sorted(sys.modules)}))
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("ops.mlsp_cuda", "bench.cli", "parallel.batch",
                 "ops.batch_cuda", "bench.throughput", "ops.dense_cuda",
-                "ops.dense_kernels"):
+                "ops.dense_kernels", "ops.banded_plain", "ops.banded_cuda",
+                "parallel.mesh", "parallel.giant2", "parallel.giant",
+                "parallel.multihost"):
         assert f"gpuseqalign_tpu_torch.{mod}" in got["mods"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
