@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of gpuseqalign_tpu_torch (the PyTorch/CUDA port) on one card.
 
-    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant]
+    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant,probe]
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (CUDA
 toolkit with nvcc; the kernels are built from the checkout's sources).
@@ -59,6 +59,18 @@ Phases, each of which makes the script exit non-zero if it fails:
                 align_giant2 on two bands of the one card; the batch
                 engine on a two-entry mesh against no mesh; and
                 align_pairs_multihost in two processes on the one card
+  8. probe      the step-body probes (K8a-d, ops/csrc/probe.cu): every
+                probe entry, body, variant and strip count against its
+                plain version at small sizes, bit-exact; the skeleton and
+                fullstep strips against the oracle on the same letters;
+                then bench.vpu_probe's ops, skeleton K sweeps, fullstep
+                variants, int16, roofline_body for the four specs and
+                probe_gridcost (K1 at 23728^2, nw_lg and nw_ag), the
+                compiler's resources and SASS opcodes of each probe
+                kernel (logs/chip_smoke/probe_sass.json), and
+                bench.headline once (nw_ag at 23728^2, its JSON line);
+                every probe kernel must have launched, and each is then
+                timed against its plain version on one card-sized call
 
 With every phase run (the default), the line before the last is a JSON
 object describing every kernel and the last line is the contract line
@@ -80,7 +92,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RESRC = os.path.join(HERE, "resrc")
 OUT = os.path.join(HERE, "logs", "chip_smoke")
 SPECS = ("nw_lg", "nw_ag", "sw_lg", "sw_ag")
-PHASES = ("build", "kernels", "cli", "full", "throughput", "giant")
+PHASES = ("build", "kernels", "cli", "full", "throughput", "giant",
+          "probe")
 GAPO = -11
 GAPE = {"nw_lg": 0, "sw_lg": 0, "nw_ag": -2, "sw_ag": -2}
 
@@ -89,10 +102,6 @@ GAPE = {"nw_lg": 0, "sw_lg": 0, "nw_ag": -2, "sw_ag": -2}
 # figure, which counts 2 flops per FMA on 128 lanes).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations per DP cell of the recurrence: linear gap = add diag,
-# max up/left, add gap, max; affine = F (max, 2 adds) + E (max, 2 adds) +
-# H (add, 2 max); SW adds the zero clamp and the best-cell compare.
-OPS_PER_CELL = {"nw_lg": 4, "sw_lg": 6, "nw_ag": 9, "sw_ag": 11}
 # The dense single-pair names the CLI phase adds to the sparse ones.
 DENSE_PARAMS = {"tpu1_xla_diag": {}, "tpu2_xla_rowscan": {},
                 "tpu3_pallas_dense": {},
@@ -208,8 +217,19 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cell_insns(spec: str) -> int:
+    """int32 instructions a DP cell of ``spec`` issues on sm_90a, the unit
+    of every operations bound here: the recurrence's operations with each
+    add that feeds a max fused into one DPX VIADDMNMX
+    (``bench.vpu_probe.INSNS_PER_CELL``: 3, 4, 6, 7)."""
+    from gpuseqalign_tpu_torch.bench.vpu_probe import INSNS_PER_CELL
+
+    return INSNS_PER_CELL[spec]
+
+
 def bound(nbytes: float, ops: float) -> tuple:
-    """(ms, "operations"|"bytes"): the larger of the two least times."""
+    """(ms, "operations"|"bytes"): the larger of the two least times;
+    ``ops`` counts int32 instructions issued."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -225,11 +245,11 @@ def header_words(spec, rows_p, cols_p, th, tw) -> int:
 
 def bound_ms(spec, rows_p, cols_p, th, tw, S) -> tuple:
     """Least time for the single-pair fill. Bytes: each input read once,
-    each output written once; operations: the int32 operations of the
+    each output written once; operations: the int32 instructions of the
     recurrence over every cell the fill computes."""
     nbytes = 4 * (S * S + rows_p + cols_p + 2
                   + header_words(spec, rows_p, cols_p, th, tw))
-    return bound(nbytes, OPS_PER_CELL[spec] * rows_p * cols_p)
+    return bound(nbytes, cell_insns(spec) * rows_p * cols_p)
 
 
 def live_cells(pairs, idxs) -> int:
@@ -239,7 +259,7 @@ def live_cells(pairs, idxs) -> int:
 
 def bucket_work(spec, pairs, idxs, rows_p, cols_p, S, headers=False
                 ) -> tuple:
-    """(bytes, int32 operations) of one call on a bucket: inputs
+    """(bytes, int32 instructions) of one call on a bucket: inputs
     (sequences, lengths) read once; outputs written once: cost and best,
     plus the tile headers of every pair when the call returns them.
     Operations: the recurrence over the cells the outputs need, the live
@@ -253,7 +273,7 @@ def bucket_work(spec, pairs, idxs, rows_p, cols_p, S, headers=False
         out_words += b * header_words(spec, rows_p, cols_p, th, tw)
         cells = b * rows_p * cols_p
     nbytes = 4 * (S * S + b * (rows_p + cols_p + 4) + out_words)
-    return nbytes, OPS_PER_CELL[spec] * cells
+    return nbytes, cell_insns(spec) * cells
 
 
 def run_cli(main, spec, params, pair_lines, name):
@@ -333,9 +353,9 @@ def rows_max_abs_diff(torch, a, b, chunk=1024) -> int:
 def dense_bound_ms(spec, adjr, adjc, S) -> tuple:
     """Least time for the dense fill of one pair. Bytes: the inputs read
     once (subst, y, x) and H (adjr, adjc) written once; operations: the
-    int32 operations of the recurrence over the live cells."""
+    int32 instructions of the recurrence over the live cells."""
     nbytes = 4 * (S * S + adjr + adjc + adjr * adjc)
-    return bound(nbytes, OPS_PER_CELL[spec] * (adjr - 1) * (adjc - 1))
+    return bound(nbytes, cell_insns(spec) * (adjr - 1) * (adjc - 1))
 
 
 def check_dense_kernel(torch, subst, subst_np) -> int:
@@ -568,7 +588,7 @@ def phase_throughput(torch, subst, S) -> dict:
                 e["plain_ms"] += plain_ms
                 e["bytes"] += nbytes
                 e["ops"] += ops
-                e["padded_ops"] += OPS_PER_CELL[spec] * len(idxs) * rows_p \
+                e["padded_ops"] += cell_insns(spec) * len(idxs) * rows_p \
                     * cols_p
                 e["buckets"] += 1
             if name == "pair_generated_1" and min(launches.values()) <= 0:
@@ -644,6 +664,7 @@ def time_fill_batch(torch, subst, S) -> dict:
     if r["max_abs_err"]:
         fail(f"mlsp_fill_batch != mlsp_fill_batch_plain on pair_generated_1 "
              f"{spec}: max |diff| {r['max_abs_err']}")
+    r["ops"] = work[1]
     r["bound_ms"], r["bound_by"] = bound(work[0], work[1])
     r["headers_bound_ms"], by = bound(work[2], work[3])
     log(f"phase throughput: mlsp_fill_batch on the pair_generated_1 {spec} "
@@ -1323,6 +1344,328 @@ def phase_giant(torch, cli_main, subst, subst_np, S) -> dict:
     return r
 
 
+def check_probe_kernels(torch) -> int:
+    """Every probe kernel, body, variant and strip count against its plain
+    version on the card at small sizes, bit-exact; returns the cases."""
+    from gpuseqalign_tpu_torch.bench.vpu_probe import (
+        chain_input,
+        strip_inputs,
+    )
+    from gpuseqalign_tpu_torch.ops import probe_cuda
+    from gpuseqalign_tpu_torch.ops import probe_plain as pp
+
+    dev = torch.device("cuda")
+    cases = 0
+
+    def same(name, got, want):
+        nonlocal cases
+        if not isinstance(got, dict):
+            got, want = {"out": got}, {"out": want}
+        err = max_abs_diff(torch, got, want)
+        if err:
+            fail(f"{name}: kernel != plain, max |diff| {err}")
+        cases += 1
+
+    for body in pp.CHAIN_BODIES:
+        skeleton = body.startswith("skeleton_")
+        gape = GAPE["nw_ag"] if body.endswith("_ag") else 0
+        for nch in probe_cuda.STRIP_K if skeleton else probe_cuda.CHAIN_NCH:
+            for iters in (1, 37) if skeleton else (0, 1, 53):
+                a = chain_input(5, 128 if skeleton else 256, dev,
+                                f"check {body} {nch} {iters}")
+                same(f"probe_chain {body} nch {nch} iters {iters}",
+                     probe_cuda.probe_chain(a, body, nch, iters, GAPO, gape),
+                     pp.chain_plain(a, body, nch, iters, GAPO, gape))
+    for mode in pp.INT16_MODES:
+        for iters in (0, 1, 77):
+            a = chain_input(5, 256, dev, f"check {mode} {iters}",
+                            full_words=mode != "i32")
+            same(f"probe_int16 {mode} iters {iters}",
+                 probe_cuda.probe_int16(a, mode, iters),
+                 pp.int16_plain(a, mode, iters))
+    for gap in ("linear", "affine"):
+        gape = GAPE["nw_ag"] if gap == "affine" else 0
+        for variant in pp.VARIANTS:
+            nt = 32 if variant == "onewarp" else 128
+            for K in probe_cuda.STRIP_K:
+                for iters in (1, 45):
+                    ins = strip_inputs(3, K, nt, iters, dev,
+                                       f"check {gap} {variant} {K} {iters}")
+                    same(f"probe_fullstep {gap} {variant} K {K} iters "
+                         f"{iters}",
+                         probe_cuda.probe_fullstep(*ins, GAPO, gape, gap=gap,
+                                                   variant=variant),
+                         pp.fullstep_plain(*ins, GAPO, gape, gap=gap,
+                                           variant=variant))
+    torch.cuda.synchronize()
+    return cases
+
+
+def check_probe_strips(torch) -> int:
+    """The skeleton (constant scores) and fullstep (real letters) strips
+    against the oracle on the same pair; returns the strips checked."""
+    import numpy as np
+
+    from gpuseqalign_tpu_torch.bench.vpu_probe import strip_inputs
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
+    from gpuseqalign_tpu_torch.models.oracle import oracle_align_dense
+    from gpuseqalign_tpu_torch.ops import probe_cuda
+
+    dev = torch.device("cuda")
+    strips = 0
+
+    def oracle(spec, subst, y_row, x_row):
+        return oracle_align_dense(
+            AlignSpec.from_name(spec), subst,
+            np.concatenate([[0], y_row]).astype(np.int32),
+            np.asarray(x_row, np.int32), GAPO, GAPE[spec])
+
+    nt, iters, K = 128, 40, 2
+    for spec in ("nw_lg", "nw_ag"):
+        a = torch.full((2, nt), 3, dtype=torch.int32, device=dev)
+        got = probe_cuda.probe_chain(a, f"skeleton_{spec}", K, iters, GAPO,
+                                     GAPE[spec]).cpu().numpy()
+        want = np.max([oracle(spec, np.full((25, 25), 3 + k, np.int32),
+                              np.zeros(nt), np.zeros(iters + 1))["H"][1:, iters]
+                       for k in range(K)], 0)
+        if not (got == want).all():
+            fail(f"skeleton_{spec} != oracle")
+        strips += 2 * K
+    for spec in SPECS:
+        gap = "affine" if spec.endswith("_ag") else "linear"
+        for variant in ("sw",) if spec.startswith("sw") else ("base",
+                                                             "onewarp"):
+            rows = 32 if variant == "onewarp" else nt
+            ins = strip_inputs(2, K, rows, iters, dev, f"oracle {spec}")
+            got = {k: v.cpu().numpy() for k, v in probe_cuda.probe_fullstep(
+                *ins, GAPO, GAPE[spec], gap=gap, variant=variant).items()}
+            subst, y, x = (t.cpu().numpy() for t in ins[:3])
+            for b in range(2):
+                for k in range(K):
+                    m = oracle(spec, subst, y[b, k], x[k])
+                    H = m["H"]
+                    want = {"hcol": H[1:, iters], "hrow": H[rows, 1:]}
+                    if gap == "affine":
+                        want["ecol"] = m["E"][1:, iters]
+                        want["frow"] = m["F"][rows, 1:]
+                    if variant == "sw":
+                        v, j = H[1:, 1:].max(1), H[1:, 1:].argmax(1) + 1
+                        hit = v > 0
+                        want["best"] = np.stack(
+                            [v, np.arange(1, rows + 1) * hit, j * hit], -1)
+                    for key, w in want.items():
+                        if not (got[key][b, k] == w).all():
+                            fail(f"probe_fullstep {spec} {variant} strip "
+                                 f"({b}, {k}) {key} != oracle")
+                    strips += 1
+    return strips
+
+
+def probe_main_path(torch) -> dict:
+    """bench.vpu_probe's probes and bench.headline on the card, each
+    result logged as a JSON line; returns the results."""
+    import contextlib
+    import io
+
+    from gpuseqalign_tpu_torch.bench import headline, vpu_probe
+
+    dev = torch.device("cuda")
+    res = {"ops": vpu_probe.probe_ops(dev),
+           "skeleton_nw_lg": vpu_probe.probe_skeleton(False, device=dev),
+           "skeleton_nw_ag": vpu_probe.probe_skeleton(True, device=dev),
+           "int16": vpu_probe.probe_int16(dev)}
+    for kind, gap in (("nw", "linear"), ("sw", "linear"), ("nw", "affine"),
+                      ("sw", "affine")):
+        spec = vpu_probe.spec_name(kind, gap)
+        res[f"roofline_{spec}"] = vpu_probe.roofline_body(kind, gap,
+                                                          device=dev)
+    for gap in ("linear", "affine"):
+        spec = vpu_probe.spec_name("nw", gap)
+        res[f"fullstep_{spec}"] = vpu_probe.probe_fullstep(
+            res[f"roofline_{spec}"]["K"], gap=gap, device=dev)
+        res[f"gridcost_{spec}"] = vpu_probe.probe_gridcost(FULL_N, gap,
+                                                           device=dev)
+    for name, r in res.items():
+        log(f"phase probe {name}: " + json.dumps(r))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = headline.main([], device=dev)
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(line)
+    res["headline"] = json.loads(line)
+    if rc != 0:
+        fail(f"bench.headline exit {rc}")
+    return res
+
+
+def probe_resources() -> None:
+    """Registers, spills and resident blocks of every probe kernel, and
+    its SASS opcodes, to logs/chip_smoke/probe_sass.json; spills logged."""
+    from gpuseqalign_tpu_torch.bench.vpu_probe import sass_summary
+
+    summary = sass_summary()
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "probe_sass.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    spills = {k: v["local_bytes"] for k, v in summary["resources"].items()
+              if v["local_bytes"]}
+    log(f"phase probe resources: {len(summary['resources'])} kernels, "
+        f"spills (local bytes a thread) {spills or 'none'}; registers "
+        + json.dumps({k: v["regs"] for k, v in summary["resources"].items()}))
+
+
+def time_probe_kernels(torch, res) -> dict:
+    """Every probe kernel at the sizes the main path ran it, against its
+    plain version on the same inputs, bit-exact: each ops body and int16
+    mode at M1 on its card grid, each skeleton at its largest K and grid
+    at M2, every fullstep variant at the roofline's K on its grid at M2,
+    and each spec's roofline winner (sw included) at its K, grid and both
+    column counts. One call of each kernel is also timed for the kernels
+    line (CUDA-event ms, mean of 3 after a warm-up; plain ms of one call)
+    with its bound over the int32 instructions it issues; max_abs_err is
+    over every call held."""
+    from gpuseqalign_tpu_torch.bench import vpu_probe as vp
+    from gpuseqalign_tpu_torch.ops import probe_cuda
+    from gpuseqalign_tpu_torch.ops import probe_plain as pp
+
+    dev = torch.device("cuda")
+    out = {k: dict(max_abs_err=0, held=0) for k in probe_cuda.LAUNCHES}
+
+    def hold(kernel, name, run, plain):
+        """Kernel against plain on one call; returns the plain ms."""
+        got = run()
+        want = []
+        plain_ms = cuda_ms(torch, lambda: want.append(plain()), 1)
+        if not isinstance(got, dict):
+            got, want = {"out": got}, [{"out": want[0]}]
+        err = max_abs_diff(torch, got, want[0])
+        out[kernel]["max_abs_err"] = max(out[kernel]["max_abs_err"], err)
+        if err:
+            fail(f"{kernel} {name} != plain at the main path's size: "
+                 f"max |diff| {err}")
+        out[kernel]["held"] += 1
+        return plain_ms
+
+    def timed(kernel, name, run, plain, nbytes, ops):
+        run()
+        ms = cuda_ms(torch, run, 3)
+        plain_ms = hold(kernel, name, run, plain)
+        b_ms, b_by = bound(nbytes, ops)
+        out[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, timed=name)
+        log(f"phase probe timing {kernel} {name}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), bit-exact")
+
+    nt, iters = vp.CARD.chain_threads, vp.CARD.chain_iters[0]
+    for body in vp.BODY_INSNS:
+        blocks, _ = vp.card_grid(dev, "probe_chain", body, vp.OPS_CHAINS,
+                                 nt)
+        a = vp.chain_input(blocks, nt, dev, body)
+        run = (lambda a=a, body=body: probe_cuda.probe_chain(
+            a, body, vp.OPS_CHAINS, iters))
+        plain = (lambda a=a, body=body: pp.chain_plain(
+            a, body, vp.OPS_CHAINS, iters))
+        name = f"{body} x{blocks} blocks, {iters} iterations"
+        if body == "maxadd2":
+            timed("probe_chain", name, run, plain, 8 * a.numel(),
+                  a.numel() * vp.OPS_CHAINS * iters * vp.BODY_INSNS[body])
+        else:
+            hold("probe_chain", name, run, plain)
+    rows, m1, m2 = vp.CARD.strip_threads, *vp.CARD.strip_iters
+    for spec in ("nw_lg", "nw_ag"):
+        body, K = f"skeleton_{spec}", max(probe_cuda.STRIP_K)
+        blocks, _ = vp.card_grid(dev, "probe_chain", body, K, rows)
+        a = vp.chain_input(blocks, rows, dev, body)
+        hold("probe_chain", f"{body} K{K} x{blocks} blocks, {m2} columns",
+             lambda: probe_cuda.probe_chain(a, body, K, m2, GAPO,
+                                            GAPE[spec]),
+             lambda: pp.chain_plain(a, body, K, m2, GAPO, GAPE[spec]))
+    for mode in pp.INT16_MODES:
+        blocks, _ = vp.card_grid(dev, "probe_int16", mode, 0, nt)
+        a = vp.chain_input(blocks, nt, dev, mode, full_words=mode != "i32")
+        run = (lambda a=a, mode=mode: probe_cuda.probe_int16(a, mode,
+                                                             iters))
+        plain = (lambda a=a, mode=mode: pp.int16_plain(a, mode, iters))
+        name = f"{mode} x{blocks} blocks, {iters} iterations"
+        if mode == "i16x2":
+            timed("probe_int16", name, run, plain, 8 * a.numel(),
+                  a.numel() * pp.INT16_CHAINS * iters * vp.INT16_INSNS[mode])
+        else:
+            hold("probe_int16", name, run, plain)
+
+    def strip_call(gap, variant, K, blocks, cols):
+        nt_ = 32 if variant == "onewarp" else rows
+        ins = vp.strip_inputs(blocks, K, nt_, cols, dev, variant)
+        gape = GAPE["nw_ag"] if gap == "affine" else 0
+        strips = blocks * K
+        outs = strips * (nt_ + cols) * (2 if gap == "affine" else 1)
+        outs += 3 * strips * nt_ if variant == "sw" else 0
+        return (lambda: probe_cuda.probe_fullstep(
+                    *ins, GAPO, gape, gap=gap, variant=variant),
+                lambda: pp.fullstep_plain(*ins, GAPO, gape, gap=gap,
+                                          variant=variant),
+                4 * (sum(t.numel() for t in ins) + outs),
+                strips * nt_ * cols)
+
+    for gap, kernel in (("linear", "probe_fullstep"),
+                        ("affine", "probe_fullstep_affine")):
+        K = res[f"roofline_{vp.spec_name('nw', gap)}"]["K"]
+        for variant in pp.VARIANTS:
+            nt_ = 32 if variant == "onewarp" else rows
+            blocks, _ = vp.card_grid(dev, kernel, variant, K, nt_)
+            run, plain, _, _ = strip_call(gap, variant, K, blocks, m2)
+            hold(kernel, f"{variant} K{K} x{blocks} blocks, {m2} columns",
+                 run, plain)
+        for kind in ("nw", "sw"):
+            spec = vp.spec_name(kind, gap)
+            best = res[f"roofline_{spec}"]
+            variant = "sw" if kind == "sw" else "base"
+            for cols in (m1, m2):
+                run, plain, nbytes, cells = strip_call(
+                    gap, variant, best["K"], best["blocks"], cols)
+                name = (f"roofline {spec} {variant} K{best['K']} "
+                        f"x{best['blocks']} blocks, {cols} columns")
+                if kind == "nw" and cols == m2:
+                    timed(kernel, name, run, plain, nbytes,
+                          cell_insns(spec) * cells)
+                else:
+                    hold(kernel, name, run, plain)
+    log("phase probe held at the main path's sizes: " + json.dumps(
+        {k: v["held"] for k, v in out.items()}))
+    return out
+
+
+def body_shares(per_spec, dense_spec, fill, runs, banded, giant, probe):
+    """Each fill's GCUPS in this run beside the same run's roofline body
+    for its spec and the published int32 bound: logged, and returned."""
+    from gpuseqalign_tpu_torch.bench.vpu_probe import INT32_OPS_PER_S
+
+    def live_gcups(e, spec):
+        # The batch kernels' instruction counts cover their live cells.
+        return e["ops"] / cell_insns(spec) / (e["ms"] * 1e-3) / 1e9
+
+    rows = {}
+    for spec in SPECS:
+        rows[f"mlsp_fill {spec} 23728^2"] = (per_spec[spec]["gcups"], spec)
+        rows[f"dense_fill {spec} 23728^2"] = (dense_spec[spec]["gcups"], spec)
+        rows[f"banded_pass {spec} 23728^2"] = (banded[spec]["gcups"], spec)
+        rows[f"banded_pass {spec} 100000^2"] = (
+            giant["full"]["specs"][spec]["gcups"], spec)
+    rows["mlsp_fill_batch nw_ag pair_generated_1"] = (
+        live_gcups(fill, "nw_ag"), "nw_ag")
+    rows["mlsp_tiny nw_ag synth_16384"] = (live_gcups(
+        runs["synth_16384_nw_ag"]["kernels"]["mlsp_tiny"], "nw_ag"), "nw_ag")
+    out = {}
+    for name, (gcups, spec) in rows.items():
+        body = probe[f"roofline_{spec}"]["gcups"]
+        out[name] = dict(gcups=gcups, body_gcups=body,
+                         body_share=gcups / body,
+                         bound_share=gcups * 1e9 * cell_insns(spec)
+                         / INT32_OPS_PER_S)
+    log("phase probe body shares: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1346,6 +1689,7 @@ def main() -> int:
         build,
         dense_cuda,
         mlsp_cuda,
+        probe_cuda,
     )
     from gpuseqalign_tpu_torch.ops.dense_plain import rowscan_dense
     from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
@@ -1551,11 +1895,31 @@ def main() -> int:
             f"{giant['streams_s']:.1f}, batch mesh and multihost "
             f"{giant['mesh_s']:.1f}")
 
+    # 8. the step-body probes and the headline bench
+    probe, probe_launches, probe_timing = {}, {}, {}
+    if "probe" in phases:
+        t0 = time.perf_counter()
+        n_cases = check_probe_kernels(torch)
+        n_strips = check_probe_strips(torch)
+        log(f"phase probe: {n_cases} cases bit-exact against the plain "
+            f"versions, {n_strips} strips equal to the oracle in "
+            f"{time.perf_counter() - t0:.1f} s")
+        probe_resources()
+        probe_cuda.LAUNCHES.update(dict.fromkeys(probe_cuda.LAUNCHES, 0))
+        probe = probe_main_path(torch)
+        probe_launches = dict(probe_cuda.LAUNCHES)
+        if min(probe_launches.values()) <= 0:
+            fail(f"probe: a kernel was never launched: {probe_launches}")
+        log(f"phase probe launches: {probe_launches}")
+        probe_timing = time_probe_kernels(torch, probe)
+        times["probe"] = time.perf_counter() - t0
+
     log("phase times s: " + json.dumps({k: round(v, 2)
                                           for k, v in times.items()}))
     if phases != set(PHASES):
         log(f"partial run ({sorted(phases)}): no result line")
         return 0
+    body_shares(per_spec, dense_spec, fill, runs, banded, giant, probe)
     head = per_spec["nw_ag"]
     dense_head = dense_spec["nw_ag"]
     banded_head = banded["nw_ag"]
@@ -1622,7 +1986,21 @@ def main() -> int:
         "bound_ms": banded_head["bound_ms"],
         "bound_by": banded_head["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/probe.cu",
+        "replaces": f"gpuseqalign_tpu/bench/vpu_probe.py:{line}",
+        "launches": probe_launches[name],
+        "max_abs_err": probe_timing[name]["max_abs_err"],
+        "ms": probe_timing[name]["ms"],
+        "plain_ms": probe_timing[name]["plain_ms"],
+        "bound_ms": probe_timing[name]["bound_ms"],
+        "bound_by": probe_timing[name]["bound_by"],
+        "library_ms": None,
+    } for name, line in (("probe_chain", 57), ("probe_fullstep", 176),
+                         ("probe_fullstep_affine", 538),
+                         ("probe_int16", 996))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -51,7 +51,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _so_path(name: str) -> str:
+def so_path(name: str) -> str:
     with open(os.path.join(_CSRC, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     return os.path.join(_BUILD_DIR, f"lib{name}-{digest}.so")
@@ -72,7 +72,7 @@ def build_all(names: Optional[List[str]] = None) -> float:
     t0 = time.perf_counter()
     errors = []
     with _lock:
-        todo = [(n, _so_path(n)) for n in (names or sources())]
+        todo = [(n, so_path(n)) for n in (names or sources())]
         todo = [(n, so) for n, so in todo if not os.path.exists(so)]
         procs = [(n, so, _start(n, so)) for n, so in todo]
         for n, so, proc in procs:
@@ -90,4 +90,4 @@ def load(name: str) -> ctypes.CDLL:
     """Load the library of ``ops/csrc/<name>.cu``, building it if needed.
     Callers keep the handle (and set its argtypes) once."""
     build_all([name])
-    return ctypes.CDLL(_so_path(name))
+    return ctypes.CDLL(so_path(name))

@@ -49,6 +49,10 @@
 //     column of the last tile column (the next band's halo) and the
 //     bottom row of the last tile row (the next pass's carry). Lengths
 //     and the SW mask are band-local; offsets stay 64-bit.
+//   * mlsp_fill_bodyoff_diag is mlsp_fill_diag with the DP step skipped
+//     (a BODYOFF flag): the same launches, loads and output stores, timed
+//     against the whole fill by bench/vpu_probe.py::probe_gridcost to
+//     split K1's time into step body and machinery. No path calls it.
 //
 // What bounds the sparse entries on an H100: not bytes (O(rows*cols/tile)
 // header traffic) but the serial dependency chain of the DP — each
@@ -136,7 +140,8 @@ __device__ Params pair_params(Params p, int b) {
   return p;
 }
 
-template <bool SW, bool AFFINE, bool BATCH, bool DENSE, bool BANDED>
+template <bool SW, bool AFFINE, bool BATCH, bool DENSE, bool BANDED,
+          bool BODYOFF = false>
 __global__ void __launch_bounds__(kMaxThreads)
 mlsp_tile_kernel(Params args, int d, int it_lo) {
   extern __shared__ int smem[];
@@ -188,6 +193,23 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
       h_left = p.hcols[hc];
       if (AFFINE) e_left = p.ecols[hc];
       diag = li == 1 ? hrow_in[0] : p.hcols[hc - hstride];
+    }
+    if (BODYOFF) {
+      // The machinery alone (bench/vpu_probe.py::probe_gridcost): the
+      // same launches and loads and the tile's outputs stored once, no DP
+      // step. The values are not an alignment's.
+      if (row_ok && jt + 1 < p.tcols) {
+        p.hcols[hc + 1] = h_left + diag + srow[0];
+        if (AFFINE) p.ecols[hc + 1] = e_left;
+      }
+      if (last_group && it + 1 < p.trows) {
+        for (int j = t + 1; j <= tw; j += nt) {
+          const size_t o = (size_t)(it + 1) * width + col0 + j;
+          p.hrows[o] = top[j];
+          if (AFFINE) p.frows[o] = ftop[j];
+        }
+      }
+      continue;
     }
     int h_out = 0, f_out = 0;  // this thread's cell of the previous step
     const int nsteps = nr + tw - 1;
@@ -279,7 +301,8 @@ mlsp_tile_kernel(Params args, int d, int it_lo) {
   }
 }
 
-template <bool SW, bool AFFINE, bool BATCH, bool DENSE, bool BANDED>
+template <bool SW, bool AFFINE, bool BATCH, bool DENSE, bool BANDED,
+          bool BODYOFF = false>
 int launch(const Params& p, int d, int npairs, cudaStream_t stream) {
   const int it_lo = std::max(0, d - p.tcols + 1);
   const int it_hi = std::min(d, p.trows - 1);
@@ -287,23 +310,25 @@ int launch(const Params& p, int d, int npairs, cudaStream_t stream) {
   size_t words = fixed_smem_words(p.S, nt, SW);
   if (!p.scratch) words += top_words(p.tw, AFFINE);
   const dim3 grid(it_hi - it_lo + 1, npairs);
-  mlsp_tile_kernel<SW, AFFINE, BATCH, DENSE, BANDED>
+  mlsp_tile_kernel<SW, AFFINE, BATCH, DENSE, BANDED, BODYOFF>
       <<<grid, nt, words * sizeof(int), stream>>>(p, d, it_lo);
   return (int)cudaGetLastError();
 }
 
-template <bool BATCH, bool DENSE, bool BANDED>
+template <bool BATCH, bool DENSE, bool BANDED, bool BODYOFF = false>
 int dispatch(int sw, int affine, const Params& p, int d, int npairs,
              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (sw) {
-    return affine
-               ? launch<true, true, BATCH, DENSE, BANDED>(p, d, npairs, st)
-               : launch<true, false, BATCH, DENSE, BANDED>(p, d, npairs, st);
+    return affine ? launch<true, true, BATCH, DENSE, BANDED, BODYOFF>(
+                        p, d, npairs, st)
+                  : launch<true, false, BATCH, DENSE, BANDED, BODYOFF>(
+                        p, d, npairs, st);
   }
-  return affine
-             ? launch<false, true, BATCH, DENSE, BANDED>(p, d, npairs, st)
-             : launch<false, false, BATCH, DENSE, BANDED>(p, d, npairs, st);
+  return affine ? launch<false, true, BATCH, DENSE, BANDED, BODYOFF>(
+                      p, d, npairs, st)
+                : launch<false, false, BATCH, DENSE, BANDED, BODYOFF>(
+                      p, d, npairs, st);
 }
 
 }  // namespace
@@ -406,6 +431,23 @@ int mlsp_fill_banded_diag(int sw, int affine, const int* subst, int S,
   Params p{subst, y,     x,   hrows, hcols, frows, ecols, tbest, scratch,
            S,     gapo,  gape, adjr, adjc,  th,    tw,    trows, tcols};
   return dispatch<false, false, true>(sw, affine, p, d, 1, stream);
+}
+
+// mlsp_fill_diag with the step body skipped (BODYOFF): the launches,
+// loads and output stores of the fill, for timing its machinery against
+// the whole (bench/vpu_probe.py::probe_gridcost). The outputs are not an
+// alignment's.
+int mlsp_fill_bodyoff_diag(int sw, int affine, const int* subst, int S,
+                           const int* y, const int* x, int gapo, int gape,
+                           int adjr, int adjc, int th, int tw, int trows,
+                           int tcols, int d, int* hrows, int* hcols,
+                           int* frows, int* ecols, int* tbest, int* scratch,
+                           void* stream) {
+  if (!valid_args(sw, affine, S, th, tw, trows, tcols, d, scratch))
+    return (int)cudaErrorInvalidValue;
+  Params p{subst, y,     x,   hrows, hcols, frows, ecols, tbest, scratch,
+           S,     gapo,  gape, adjr, adjc,  th,    tw,    trows, tcols};
+  return dispatch<false, false, false, true>(sw, affine, p, d, 1, stream);
 }
 
 }  // extern "C"

@@ -63,8 +63,9 @@ def load_lib() -> ctypes.CDLL:
             p, p,                      # scratch, stream
         ]
         lib.mlsp_fill_dense_diag.restype = ctypes.c_int
-        lib.mlsp_fill_banded_diag.argtypes = lib.mlsp_fill_diag.argtypes
-        lib.mlsp_fill_banded_diag.restype = ctypes.c_int
+        for entry in (lib.mlsp_fill_banded_diag, lib.mlsp_fill_bodyoff_diag):
+            entry.argtypes = lib.mlsp_fill_diag.argtypes
+            entry.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -135,14 +136,18 @@ def _check(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
 
 def mlsp_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
               gapo: int, gape: int, adjr: int, adjc: int, *,
-              tile_h: int, tile_w: int, kind: str, gap: str
-              ) -> Dict[str, torch.Tensor]:
-    """Sparse fill for any spec; the outputs of ``mlsp_fill_plain``."""
+              tile_h: int, tile_w: int, kind: str, gap: str,
+              _bodyoff: bool = False) -> Dict[str, torch.Tensor]:
+    """Sparse fill for any spec; the outputs of ``mlsp_fill_plain``.
+
+    ``_bodyoff`` is for ``bench/vpu_probe.py::probe_gridcost`` alone: the
+    same launches with the DP step skipped (CUDA only), whose outputs are
+    not an alignment's."""
     global LAUNCHES
     _check(subst, y, x, tile_h, tile_w)
     args = (subst, y, x, gapo, gape, adjr, adjc)
     kw = dict(tile_h=tile_h, tile_w=tile_w, kind=kind, gap=gap)
-    if y.device.type == "cpu":
+    if y.device.type == "cpu" and not _bodyoff:
         return mlsp_fill_plain(*args, **kw)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device: {y.device}")
@@ -173,8 +178,9 @@ def mlsp_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        entry = lib.mlsp_fill_bodyoff_diag if _bodyoff else lib.mlsp_fill_diag
         for d in range(trows + tcols - 1):
-            rc = lib.mlsp_fill_diag(
+            rc = entry(
                 int(is_sw), int(affine), ptr(subst), subst.shape[0],
                 ptr(y), ptr(x), gapo, gape, adjr, adjc,
                 tile_h, tile_w, trows, tcols, d,

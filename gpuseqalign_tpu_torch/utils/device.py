@@ -6,7 +6,8 @@ card is an error, never a quiet fall back to the CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import subprocess
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -30,3 +31,21 @@ def synchronize(dev: torch.device) -> None:
     host clock read next covers it."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def card_info(dev: torch.device) -> Tuple[str, Optional[str]]:
+    """(name, power limit) of the card as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, for a measurement to
+    print beside its numbers; ("cpu", None) on the CPU."""
+    if dev.type != "cuda":
+        return "cpu", None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", str(index)],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    name, _, power = out.stdout.strip().splitlines()[0].rpartition(",")
+    return name.strip(), power.strip()

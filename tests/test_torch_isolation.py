@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import gpuseqalign_tpu_torch
+from gpuseqalign_tpu_torch.bench import headline, vpu_probe
 from gpuseqalign_tpu_torch.bench.cli import main
 from gpuseqalign_tpu_torch.core.registry import get_algorithm_map
 from gpuseqalign_tpu_torch.core.types import (
@@ -68,7 +69,8 @@ print(json.dumps({"mods": mods, "loaded": sorted(sys.modules)}))
                 "ops.batch_cuda", "bench.throughput", "ops.dense_cuda",
                 "ops.dense_kernels", "ops.banded_plain", "ops.banded_cuda",
                 "parallel.mesh", "parallel.giant2", "parallel.giant",
-                "parallel.multihost"):
+                "parallel.multihost", "ops.probe_plain", "ops.probe_cuda",
+                "bench.vpu_probe", "bench.headline"):
         assert f"gpuseqalign_tpu_torch.{mod}" in got["mods"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
@@ -79,16 +81,24 @@ def no_cuda():
         pytest.skip("a CUDA device is present")
 
 
-def test_main_without_device_raises_without_cuda(tmp_path, no_cuda):
+@pytest.mark.parametrize("entry", ["cli", "vpu_probe", "headline"])
+def test_main_without_device_raises_without_cuda(tmp_path, no_cuda, entry):
     params = tmp_path / "params.json"
     params.write_text(json.dumps({"cpu1_st_row": {}}))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        main([
+    argv = {
+        "cli": [
             "--substPath", os.path.join(RESRC, "subst.json"),
             "--algParamPath", str(params),
             "--seqPath", os.path.join(RESRC, "seq_generated.fa"),
             "--resPath", str(tmp_path / "out.tsv"),
-        ])
+        ],
+        "vpu_probe": ["all"],
+        "headline": ["--n", "300", "--oracleN", "64"],
+    }[entry]
+    entry_main = {"cli": main, "vpu_probe": vpu_probe.main,
+                  "headline": headline.main}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_main(argv)
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
