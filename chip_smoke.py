@@ -14,11 +14,16 @@ Phases, each of which makes the script exit non-zero if it fails:
                 tolerance). mlsp_fill (one pair), mlsp_fill_batch (a bucket
                 of pairs, also held pair by pair against mlsp_fill),
                 mlsp_tiny (cost-only, small pairs), dense_fill (the
-                full H of one pair, against rowscan_dense) and
+                full H of one pair, against rowscan_dense),
                 banded_pass (K7: chains of passes over column bands, each
                 band's halo from the band to its left, the SW clamp, 1x1
-                and 5x300, one call of several passes' rows); then
-                banded_pass timed against its plain version on the whole
+                and 5x300, one call of several passes' rows) and the v1
+                wavefront fills mlsp_nw_lg_fill (K2) and dense_nw_lg_fill
+                (K4, nw_lg only), every output element, on profiles of
+                slices of the release sequence: R 128/256/1024/2048, TW
+                from R to 2R (and 512), W 128/256/512, gapo -11/-1/0, a
+                pair shorter than a row block, one tile column, one row,
+                1x1; then banded_pass timed against its plain version on the whole
                 band of a 23728 x 23728 pair (D = 1), every spec
   3. cli        the single-pair paths: bench.cli.main on the card for
                 nw_lg, nw_ag, sw_lg, sw_ag with cpu1_st_row as the
@@ -31,8 +36,14 @@ Phases, each of which makes the script exit non-zero if it fails:
                 nw_lg (cpu1_st_row, tpu7_pallas_mlsp, tpu3_pallas_dense,
                 tpu9_giant_mlsp),
                 then each single-pair kernel against its plain version at
-                that size for every spec, timed with CUDA events
-  5. launches   the single-pair paths' runs went through their kernels
+                that size for every spec, timed with CUDA events; then the
+                pair through the v1 flows (wavefront.align_mlsp at 128x512,
+                wavefront.align_dense at R 1024) in the registry's sparse
+                and dense bundles, cost, score hash and trace hash equal
+                to cpu1_st_row's, with laps and peak device memory, and
+                K2 and K4 timed against their plain versions at that size
+  5. launches   the single-pair paths' runs went through their kernels,
+                the v1 flows through K2 and K4
   6. throughput the batch path: bench.throughput.main on the card for
                 resrc/pair_generated_1.txt (all four specs, pow2 buckets,
                 oracle check of 5 pairs) and 16384 synthetic pairs of
@@ -109,6 +120,11 @@ DENSE_PARAMS = {"tpu1_xla_diag": {}, "tpu2_xla_rowscan": {},
 # The reference's release pair (len23728 x len23728), bench.py's size.
 RELEASE_PAIRS = os.path.join(RESRC, "pair_release.txt")
 FULL_N = 23728
+# The release pair's sequence, and K2/K4's grid of row blocks R with the
+# tile widths TW held at each (TW >= R; 512 where it is).
+RELEASE_SEQ = "len23728"
+WAVEFRONT_GRID = ((128, (128, 256, 512)), (256, (256, 512)),
+                  (1024, (1024, 2048)), (2048, (2048, 4096)))
 # The batch path's runs: (name, throughput arguments, specs).
 SEQS = os.path.join(RESRC, "seq_generated.fa")
 THROUGHPUT_RUNS = (
@@ -418,6 +434,210 @@ def sweep_dense_tiles(torch, subst, subst_np, n) -> None:
         del want
         log(f"phase full-size dense_fill {spec} {n}x{n}: ms by tile "
             + ", ".join(f"{k}: {v:.3f}" for k, v in times.items()))
+
+
+def release_seq():
+    """len23728 of resrc/seq_generated.fa as letters, header-prefixed
+    (numpy int32), the sequence of the release pair."""
+    import numpy as np
+
+    from gpuseqalign_tpu_torch.io.fasta import parse_seq_file
+    from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+
+    letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
+    seq = parse_seq_file(SEQS, letters).seq_map[RELEASE_SEQ].seq
+    return np.asarray(seq, np.int32)
+
+
+def wavefront_cases() -> list:
+    """K2's and K4's cases against their plain versions: rows, cols
+    (residues), R, TW, W, gapo. Every R, TW and W of WAVEFRONT_GRID that
+    the kernel takes (TW % W == 0), on three row blocks of a pair that
+    pads its last block and its second tile column; then the edge shapes."""
+    gaps = (-11, -1, 0)
+    cases = []
+    for R, TWs in WAVEFRONT_GRID:
+        for TW in TWs:
+            for W in (128, 256, 512):
+                if TW % W == 0:
+                    cases.append((2 * R + R // 2, 2 * TW - 100, R, TW, W,
+                                  gaps[len(cases) % 3]))
+    return cases + [
+        (100, 1000, 128, 512, 512, -11),   # shorter than one row block
+        (700, 300, 256, 512, 512, -1),     # a single tile column
+        (1, 2000, 128, 512, 512, 0),       # a 1-row pair
+        (1, 1, 128, 128, 128, -11),        # 1 x 1
+    ]
+
+
+def wavefront_pskew(torch, subst, y_np, x_np, R, col_mult, W):
+    """(pskew, cols_p) of header-prefixed letters padded to R rows and to
+    col_mult columns, on the card."""
+    from gpuseqalign_tpu_torch.ops import wavefront, wavefront_cuda
+
+    rows_p = -(-(len(y_np) - 1) // R) * R
+    cols_p = -(-(len(x_np) - 1) // col_mult) * col_mult
+    y = torch.zeros(1 + rows_p, dtype=torch.int32, device="cuda")
+    x = torch.zeros(1 + cols_p, dtype=torch.int32, device="cuda")
+    y[:len(y_np)] = torch.from_numpy(y_np).cuda()
+    x[:len(x_np)] = torch.from_numpy(x_np).cuda()
+    nspad = wavefront_cuda.nspad_of(R, cols_p, W)
+    return (wavefront._build_pskew(subst, y, x, rows_p // R, R, nspad),
+            cols_p)
+
+
+def outputs_max_abs_diff(torch, got, want) -> int:
+    """max |a - b| over two tuples of int32 tensors of the same shapes,
+    whole arrays."""
+    err = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"shape/dtype {tuple(a.shape)}/{a.dtype} vs "
+                 f"{tuple(b.shape)}/{b.dtype}")
+        err = max(err, rows_max_abs_diff(torch, a.view(a.shape[0], -1),
+                                         b.view(b.shape[0], -1), chunk=1))
+    return err
+
+
+def check_wavefront_kernels(torch, subst, seq) -> int:
+    """K2 (mlsp_nw_lg_fill) and K4 (dense_nw_lg_fill) against their plain
+    versions on the card, every element of every output bit-exact, on
+    wavefront_cases() with profiles of slices of the release sequence;
+    returns the number of cases."""
+    import numpy as np
+
+    from gpuseqalign_tpu_torch.ops import wavefront_cuda as wc
+    from gpuseqalign_tpu_torch.ops.wavefront_plain import (
+        dense_nw_lg_plain,
+        mlsp_nw_lg_plain,
+    )
+
+    cases = wavefront_cases()
+    for i, (rows, cols, R, TW, W, g) in enumerate(cases):
+        y_np = np.concatenate([[0], seq[1 + 97 * i:1 + 97 * i + rows]])
+        x_np = np.concatenate([[0], seq[5001 + 89 * i:5001 + 89 * i + cols]])
+        pskew, cols_p = wavefront_pskew(torch, subst, y_np.astype(np.int32),
+                                        x_np.astype(np.int32), R, TW, W)
+        kw = dict(cols_p=cols_p, W=W)
+        for name, got, want in (
+                ("mlsp_nw_lg_fill",
+                 wc.mlsp_nw_lg_fill(pskew, g, TW=TW, **kw),
+                 mlsp_nw_lg_plain(pskew, g, TW=TW, **kw)),
+                ("dense_nw_lg_fill",
+                 (wc.dense_nw_lg_fill(pskew, g, **kw),),
+                 (dense_nw_lg_plain(pskew, g, cols_p=cols_p),))):
+            torch.cuda.synchronize()
+            err = outputs_max_abs_diff(torch, got, want)
+            if err:
+                fail(f"{name} != plain: {rows}x{cols} R {R} TW {TW} W {W} "
+                     f"gapo {g}, max |diff| {err}")
+        del pskew, got, want
+    return len(cases)
+
+
+def full_wavefront(torch, subst, subst_np, seq, ref_row, S) -> dict:
+    """The release pair through the v1 flows (wavefront.align_mlsp at
+    128x512, wavefront.align_dense at _choose_r's R) in the registry's
+    sparse and dense bundles: align, score hash and trace must equal
+    cpu1_st_row's row; each kernel's launches in its flow (counts set to 0
+    just before), the align.* laps and the peak device memory of the
+    align. Then each kernel at that size against its plain version: CUDA-
+    event ms (mean of 3 after a warm-up), the plain version's (one call),
+    max |diff| over whole arrays, bound."""
+    from gpuseqalign_tpu_torch.core.registry import dense, mlsp
+    from gpuseqalign_tpu_torch.core.types import (
+        AlgParams,
+        AlgResult,
+        make_alg_input,
+    )
+    from gpuseqalign_tpu_torch.ops import wavefront
+    from gpuseqalign_tpu_torch.ops import wavefront_cuda as wc
+    from gpuseqalign_tpu_torch.ops.wavefront_plain import (
+        dense_nw_lg_plain,
+        mlsp_nw_lg_plain,
+    )
+
+    n = len(seq) - 1
+    R_dense = wavefront._choose_r(n, 0)
+    flows = (
+        ("wavefront_mlsp", mlsp(wavefront.align_mlsp),
+         {"tileBy": [128], "tileBx": [512]}, 128, 512, 512),
+        ("wavefront_dense", dense(wavefront.align_dense), {}, R_dense, None,
+         256),
+    )
+    want = tuple(ref_row[k] for k in ("align_cost", "score_hash",
+                                      "trace_hash"))
+    out = {}
+    for name, alg, params, R, TW, W in flows:
+        nw = make_alg_input(subst_np, seq, seq, GAPO, 0, "nw_lg")
+        res = AlgResult()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wc.LAUNCHES.update(dict.fromkeys(wc.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        stats = [alg.align(AlgParams(params), nw, res)]
+        launches = wc.LAUNCHES[name]
+        peak = torch.cuda.max_memory_allocated()
+        stats += [alg.hash(nw, res), alg.trace(nw, res, False)]
+        wall = time.perf_counter() - t0
+        got = (str(res.align_cost), f"{res.score_hash & 0xFFFFFFFF:08x}",
+               f"{res.trace_hash & 0xFFFFFFFF:08x}")
+        if any(int(st) for st in stats) or got != want:
+            fail(f"{name} flow at {n}x{n}: status {stats}, (cost, score "
+                 f"hash, trace hash) {got}, cpu1_st_row {want}")
+        if launches <= 0:
+            fail(f"{name} flow at {n}x{n}: the kernel was never launched")
+        laps = {lap: res.sw_align.get_or_default(lap) for lap in (
+            "align.alloc", "align.cpy_dev", "align.calc", "align.cpy_host")}
+        laps["hash.calc"] = res.sw_hash.get_or_default("hash.calc")
+        laps["trace.calc"] = res.sw_trace.get_or_default("trace.calc")
+        log(f"phase full-size v1 flow {name} {n}x{n} R {R}"
+            + (f" TW {TW}" if TW else "") + f": cost {got[0]}, score hash "
+            f"{got[1]}, trace hash {got[2]} equal to cpu1_st_row; {launches} "
+            f"launches; peak device memory of the align "
+            f"{peak / 2**30:.3f} GiB; wall {wall:.2f} s; laps ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in laps.items()))
+        del nw, res
+        torch.cuda.empty_cache()
+
+        pskew, cols_p = wavefront_pskew(torch, subst, seq, seq, R, TW or 128,
+                                        W)
+        kw = dict(cols_p=cols_p, W=W)
+        if TW:
+            def fill():
+                return wc.mlsp_nw_lg_fill(pskew, GAPO, TW=TW, **kw)
+
+            def plain():
+                return mlsp_nw_lg_plain(pskew, GAPO, TW=TW, **kw)
+        else:
+            def fill():
+                return (wc.dense_nw_lg_fill(pskew, GAPO, **kw),)
+
+            def plain():
+                return (dense_nw_lg_plain(pskew, GAPO, cols_p=cols_p),)
+        fill()  # warm-up
+        ms = cuda_ms(torch, fill, 3)
+        got_t = fill()
+        want_t = []
+        plain_ms = cuda_ms(torch, lambda: want_t.extend(plain()), 1)
+        err = outputs_max_abs_diff(torch, got_t, want_t)
+        if err:
+            fail(f"{name} != plain at {n}x{n}: max |diff| {err}")
+        rows_p = pskew.shape[0] * R
+        nbytes = 4 * (pskew.numel() + sum(t.numel() for t in got_t))
+        b_ms, b_by = bound(nbytes, cell_insns("nw_lg") * rows_p * cols_p)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                         bound_ms=b_ms, bound_by=b_by, launches=launches,
+                         gcups=n * n / (ms * 1e-3) / 1e9, peak_bytes=peak,
+                         laps=laps, R=R, TW=TW, W=W)
+        log(f"phase full-size {name} {n}x{n} R {R}"
+            + (f" TW {TW}" if TW else "") + f" W {W} ({pskew.shape[0]} row "
+            f"blocks, {pskew.shape[1]} steps): kernel {ms:.3f} ms "
+            f"({out[name]['gcups']:.3f} GCUPS), plain {plain_ms:.1f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), bit-exact")
+        del pskew, got_t, want_t
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_batch_kernels(torch, subst) -> int:
@@ -1711,6 +1931,7 @@ def main() -> int:
         os.path.join(RESRC, "subst.json")).subst_map["blosum62"]
     subst = torch.from_numpy(subst_np).cuda()
     S = subst.shape[0]
+    seq = release_seq()
 
     # 2. kernels against their plain versions, on the card
     banded = {}
@@ -1720,10 +1941,15 @@ def main() -> int:
         nb = check_batch_kernels(torch, subst)
         nd = check_dense_kernel(torch, subst, subst_np)
         nk7 = check_banded_kernel(torch, subst, subst_np)
+        t1 = time.perf_counter()
+        nwf = check_wavefront_kernels(torch, subst, seq)
+        times["kernels_wavefront"] = time.perf_counter() - t1
         times["kernels"] = time.perf_counter() - t0
         log(f"phase kernels: {n1} mlsp_fill cases, {nb} batch cases, "
-            f"{nd} dense_fill cases and {nk7} banded_pass cases bit-exact "
-            f"in {times['kernels']:.1f} s")
+            f"{nd} dense_fill cases, {nk7} banded_pass cases and {nwf} "
+            f"cases of mlsp_nw_lg_fill and dense_nw_lg_fill (each) "
+            f"bit-exact in {times['kernels']:.1f} s (the last "
+            f"{times['kernels_wavefront']:.1f} s)")
         t0 = time.perf_counter()
         banded = time_banded(torch, subst, subst_np, FULL_N, S)
         times["kernels_banded_timing"] = time.perf_counter() - t0
@@ -1763,7 +1989,7 @@ def main() -> int:
         times["cli"] = time.perf_counter() - t0
 
     # 4. full size: the release pair through the CLI (nw_lg) ...
-    per_spec, dense_spec = {}, {}
+    per_spec, dense_spec, wave = {}, {}, {}
     max_err = 0
     main_launches = dense_launches = release_k7 = 0
     if "full" in phases:
@@ -1870,9 +2096,18 @@ def main() -> int:
         sweep_dense_tiles(torch, subst, subst_np, n)
         times["full_dense"] = time.perf_counter() - t0
 
+        # ... and the v1 wavefront flows (K2, K4), held against cpu1_st_row.
+        t0 = time.perf_counter()
+        wave = full_wavefront(torch, subst, subst_np, seq, ref_row, S)
+        times["full_wavefront"] = time.perf_counter() - t0
+
     # 5. the single-pair path went through its kernel
+    wave_launches = {k: v["launches"] for k, v in wave.items()}
     log(f"launches: cli {cli_launches}, full-size cli nw_lg mlsp_fill "
-        f"{main_launches}, dense_fill {dense_launches}")
+        f"{main_launches}, dense_fill {dense_launches}, v1 flows "
+        f"{wave_launches}")
+    if "full" in phases and min(wave_launches.values()) <= 0:
+        fail(f"a v1 wavefront kernel was never launched: {wave_launches}")
 
     # 6. the batch path
     runs = {}
@@ -2000,7 +2235,20 @@ def main() -> int:
         "library_ms": None,
     } for name, line in (("probe_chain", 57), ("probe_fullstep", 176),
                          ("probe_fullstep_affine", 538),
-                         ("probe_int16", 996))]}), flush=True)
+                         ("probe_int16", 996))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/wavefront.cu",
+        "replaces": f"gpuseqalign_tpu/ops/pallas_wavefront.py:{line}",
+        "launches": wave[name]["launches"],
+        "max_abs_err": wave[name]["max_abs_err"],
+        "ms": wave[name]["ms"],
+        "plain_ms": wave[name]["plain_ms"],
+        "bound_ms": wave[name]["bound_ms"],
+        "bound_by": wave[name]["bound_by"],
+        "library_ms": None,
+    } for name, line in (("wavefront_mlsp", 258),
+                         ("wavefront_dense", 203))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

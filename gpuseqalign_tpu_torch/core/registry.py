@@ -54,30 +54,39 @@ class Algorithm:
     print_trace: PrintFn
 
 
+def dense(align_fn: AlignFn) -> Algorithm:
+    """An align function that writes the dense H window (``nw.score``)
+    with the plain trace, hash and printers."""
+    from ..trace import plain
+
+    return Algorithm(
+        align=align_fn,
+        trace=plain.trace_plain,
+        hash=plain.hash_plain,
+        print_score=plain.print_score_plain,
+        print_trace=plain.print_trace_plain,
+    )
+
+
+def mlsp(align_fn: AlignFn) -> Algorithm:
+    """An align function that writes the sparse tile-header layout with
+    the sparse trace, hash and score printer."""
+    from ..trace import plain, sparse
+
+    return Algorithm(
+        align=align_fn,
+        trace=sparse.trace_sparse,
+        hash=sparse.hash_sparse,
+        print_score=sparse.print_score_sparse,
+        print_trace=plain.print_trace_plain,
+    )
+
+
 def get_algorithm_map() -> Dict[str, Algorithm]:
     """Build the name -> Algorithm map (insertion-ordered)."""
     from ..models import cpu_algs
     from ..ops import dense_kernels, mlsp_kernels
     from ..parallel import giant2
-    from ..trace import plain, sparse
-
-    def dense(align_fn: AlignFn) -> Algorithm:
-        return Algorithm(
-            align=align_fn,
-            trace=plain.trace_plain,
-            hash=plain.hash_plain,
-            print_score=plain.print_score_plain,
-            print_trace=plain.print_trace_plain,
-        )
-
-    def mlsp(align_fn: AlignFn) -> Algorithm:
-        return Algorithm(
-            align=align_fn,
-            trace=sparse.trace_sparse,
-            hash=sparse.hash_sparse,
-            print_score=sparse.print_score_sparse,
-            print_trace=plain.print_trace_plain,
-        )
 
     algs: Dict[str, Algorithm] = {}
 

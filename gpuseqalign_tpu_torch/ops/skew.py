@@ -2,9 +2,10 @@
 reshape only (no gathers).
 
 PyTorch port of gpuseqalign_tpu's ``ops/skew.py`` (``skew_rows``,
-``unskew_rows``), which the anti-diagonal dense fill
-(``dense_plain.diag_dense``) uses to read its substitution profile one
-contiguous row per step and to turn its per-diagonal output back into
+``unskew_rows``, ``unskew_cols``), which the anti-diagonal dense fill
+(``dense_plain.diag_dense``) and the row-block wavefront fills
+(``ops/wavefront.py``) use to read their substitution profile one
+contiguous row per step and to turn their per-diagonal output back into
 matrix rows.
 
 Skew: given P (R, C), S (R+C-1, C) holds S[d, j] = P[d-j, j] wherever
@@ -41,3 +42,13 @@ def unskew_rows(S: torch.Tensor, R: int) -> torch.Tensor:
     fc = torch.cat([fc, fc.new_zeros(C * (NSp + 1) - fc.numel())])
     T = fc.reshape(C, NSp + 1)  # T[j, i] = fc[j*(NSp+1)+i]
     return T[:, :R].t().contiguous()
+
+
+def unskew_cols(V: torch.Tensor, C: int) -> torch.Tensor:
+    """H[r, u] = V[u+r, r]; V (NS, R) with NS >= R+C-1; H (R, C).
+
+    Turns a wavefront history (step-major, one lane a row) back into the
+    row-major block: lane r at step c holds the cell of row r, column
+    u = c - r. It is ``unskew_rows`` with the roles of rows and columns
+    swapped, transposed (a view)."""
+    return unskew_rows(V, C).t()

@@ -270,9 +270,13 @@ def trace_sparse(nw: AlgInput, res: AlgResult, calc_debug_trace: bool) -> Status
         if di_tile != 0 or dj_tile != 0:
             co.i_tile += di_tile
             co.j_tile += dj_tile
-            if co.i_elem == 0 and di != 0:
+            # Rebase only the axis whose tile moved: a diagonal step onto
+            # row 0 at a tile-column boundary moves the column tile alone,
+            # and the walk stays on the header row (and the mirror case on
+            # the header column).
+            if di_tile != 0:
                 co.i_elem = nw.tile_hcol_len - 1
-            if co.j_elem == 0 and dj != 0:
+            if dj_tile != 0:
                 co.j_elem = nw.tile_hrow_len - 1
             align_tile(tile, nw, co)
 

@@ -70,7 +70,8 @@ print(json.dumps({"mods": mods, "loaded": sorted(sys.modules)}))
                 "ops.dense_kernels", "ops.banded_plain", "ops.banded_cuda",
                 "parallel.mesh", "parallel.giant2", "parallel.giant",
                 "parallel.multihost", "ops.probe_plain", "ops.probe_cuda",
-                "bench.vpu_probe", "bench.headline"):
+                "bench.vpu_probe", "bench.headline", "ops.wavefront",
+                "ops.wavefront_cuda", "ops.wavefront_plain"):
         assert f"gpuseqalign_tpu_torch.{mod}" in got["mods"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 

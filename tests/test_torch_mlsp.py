@@ -286,3 +286,42 @@ def test_wrapper_rejects_bad_inputs(blosum62, bad):
     with pytest.raises((TypeError, ValueError)):
         mlsp_cuda.mlsp_fill(subst, y, x, GAPO, GAPE, 10, 10, tile_h=th,
                             tile_w=16, kind="nw", gap="linear")
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+@pytest.mark.parametrize("name", ["tpu7_pallas_mlsp", "tpu9_giant_mlsp",
+                                  "v1"])
+def test_trace_at_tile_corner_matches_oracle(name, mirror):
+    """A diagonal step onto the header row at a tile-column boundary (1 x
+    600 at 128x512), or onto the header column at a tile-row boundary (the
+    mirror, 600 x 1 at 512x128; 512x512 for the v1 flow, whose tiles are
+    never taller than wide), moves one tile index only: the walk stays on
+    that header and gives the oracle's transcript (512 deletions, then a
+    match, then 87 deletions; insertions for the mirror)."""
+    from gpuseqalign_tpu_torch.core.registry import mlsp
+    from gpuseqalign_tpu_torch.ops import wavefront
+
+    subst = np.full((4, 4), -5, np.int32)
+    np.fill_diagonal(subst, 10)
+    y = np.array([0, 3], np.int32)
+    x = np.ones(601, np.int32)
+    x[0], x[513] = 0, 3
+    th, tw = 128, 512
+    if mirror:
+        y, x, th, tw = x, y, 512, 512 if name == "v1" else 128
+    alg = (mlsp(wavefront.align_mlsp) if name == "v1"
+           else get_algorithm_map()[name])
+    nw = make_alg_input(subst, y, x, -1, 0, "nw_lg", device="cpu")
+    res = AlgResult()
+    assert alg.align(AlgParams(_tiles(th, tw)), nw, res) == Status.success
+    assert alg.hash(nw, res) == Status.success
+    assert alg.trace(nw, res, False) == Status.success
+    aspec = jax_types.AlignSpec.from_name("nw_lg")
+    mats = oracle_align_dense(aspec, subst, y, x, -1, 0)
+    transcript, thash, _ = oracle_trace_dense(aspec, mats, subst, y, x, -1,
+                                              0)
+    assert transcript == ("512I1=87I" if mirror else "512D1=87D")
+    assert res.align_cost == align_cost_of(aspec, mats) == -589
+    assert res.edit_trace == transcript
+    assert res.trace_hash == thash
+    assert res.score_hash == oracle_hash_dense(mats["H"])
