@@ -11,20 +11,25 @@ Phases, each of which makes the script exit non-zero if it fails:
                 nvcc per source, started together
   2. kernels    each kernel against its plain PyTorch version on the card,
                 all four specs, several shapes: bit-exact (int32, no
-                tolerance). mlsp_fill (one pair), mlsp_fill_batch (a bucket
-                of pairs, also held pair by pair against mlsp_fill),
-                mlsp_tiny (cost-only, small pairs), dense_fill (the
-                full H of one pair, against rowscan_dense),
-                banded_pass (K7: chains of passes over column bands, each
-                band's halo from the band to its left, the SW clamp, 1x1
-                and 5x300, one call of several passes' rows) and the v1
+                tolerance). mlsp_fill (one pair), mlsp_fill_batch (K5, the
+                strip kernel: a bucket of pairs with headers and cost-only,
+                ragged live regions, tile_h 128, 16 and 1, a tall bucket of
+                201 strips, both layouts, each case 3 times; also held pair
+                by pair against mlsp_fill), mlsp_tiny (cost-only, small
+                pairs), dense_fill (the full H of one pair, against
+                rowscan_dense), banded_pass (K7, the strip kernel: chains of
+                passes over column bands, each band's halo from the band to
+                its left, the SW clamp, 1x1 and 5x300, one call of several
+                passes' rows, one call of 200 strips, both layouts, each
+                chain 3 times; chains of D > 1 bands also through
+                giant2_fill on D streams of the one card) and the v1
                 wavefront fills mlsp_nw_lg_fill (K2) and dense_nw_lg_fill
                 (K4, nw_lg only), every output element, on profiles of
                 slices of the release sequence: R 128/256/1024/2048, TW
                 from R to 2R (and 512), W 128/256/512, gapo -11/-1/0, a
                 pair shorter than a row block, one tile column, one row,
-                1x1; then banded_pass timed against its plain version on the whole
-                band of a 23728 x 23728 pair (D = 1), every spec
+                1x1; then banded_pass timed against its plain version on
+                the whole band of a 23728 x 23728 pair (D = 1), every spec
   3. cli        the single-pair paths: bench.cli.main on the card for
                 nw_lg, nw_ag, sw_lg, sw_ag with cpu1_st_row as the
                 reference, the sparse names and the dense ones (tpu1, tpu2,
@@ -92,6 +97,7 @@ checkout.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -136,6 +142,9 @@ THROUGHPUT_RUNS = (
 # numpy from a fixed seed over the blosum62 alphabet.
 GIANT_N = 100000
 GIANT_SEED = 20261016
+# Runs of every K5/K7 case against its plain version: their strips run
+# concurrently, so a race shows as a rare mismatch, not a crash.
+REPEATS = 3
 # K7's cases against its plain version: rows, cols (residues), R, TW,
 # band_cols, D bands, BL row blocks a call.
 BANDED_CASES = (
@@ -147,7 +156,9 @@ BANDED_CASES = (
     (300, 500, 128, 256, 512, 1, 3),    # TW = 256
     (1, 1, 128, 128, 128, 2, 2),        # 1 x 1 (band 1 all padding)
     (5, 300, 128, 128, 256, 2, 1),      # 5 x 300
+    (25600, 300, 128, 128, 384, 1, 200),  # tall: one call of 200 strips
 )
+
 
 
 def fail(msg: str) -> None:
@@ -643,7 +654,9 @@ def full_wavefront(torch, subst, subst_np, seq, ref_row, S) -> dict:
 def check_batch_kernels(torch, subst) -> int:
     """mlsp_fill_batch against mlsp_fill_batch_plain (and pair by pair
     against mlsp_fill), mlsp_tiny against scores_batch_plain; returns the
-    number of cases."""
+    number of cases. Every mlsp_fill_batch case runs the call with headers
+    and the cost-only call, each REPEATS times (the strips of a call run
+    concurrently, so a missing fence shows as a rare one-cell mismatch)."""
     from gpuseqalign_tpu_torch.ops import batch_cuda, mlsp_cuda
     from gpuseqalign_tpu_torch.ops.batch_plain import (
         mlsp_fill_batch_plain,
@@ -657,6 +670,13 @@ def check_batch_kernels(torch, subst) -> int:
         (1024, 2048, [(1024, 2048), (1, 1500), (900, 1), (1000, 1800),
                       (513, 2047)]),
         (1200, 1200, [(1200, 1200), (1100, 700), (1, 1000), (1050, 1)]),
+        # tile_h 16 (strips of 32 rows), ragged live regions
+        (1200, 1200, [(1199, 37), (37, 1199), (33, 1200), (1168, 1167),
+                      (65, 64)]),
+        # tile_h 1, tile_w 1 (gcd of odd sizes)
+        (1025, 777, [(1025, 777), (1000, 1), (31, 700), (999, 776)]),
+        # tall: 6416 = 16 x 401 rows, 201 strips of 32 rows
+        (6416, 300, [(6416, 300), (6400, 299), (6000, 17)]),
     ]
     tiny_buckets = [
         (200, 300, [(200, 300), (1, 1), (150, 1), (1, 250), (37, 299)]),
@@ -678,16 +698,18 @@ def check_batch_kernels(torch, subst) -> int:
             # Whole bucket in one group, then in groups of two pairs.
             pair_words = sum(want[k][0].numel() for k in
                              ("hrows", "hcols", "frows", "ecols") if k in want)
-            for group_cap in (cap, 2 * pair_words):
+            for group_cap, headers, rep in itertools.product(
+                    (cap, 2 * pair_words), (True, False), range(REPEATS)):
                 batch_cuda.HEADER_CAP_WORDS = group_cap
-                got = batch_cuda.mlsp_fill_batch(*args, headers=True, **kw)
+                got = batch_cuda.mlsp_fill_batch(*args, headers=headers, **kw)
                 torch.cuda.synchronize()
-                err = max_abs_diff(torch, got, want)
+                err = max_abs_diff(torch, got, {k: want[k] for k in got})
                 if err:
                     fail(f"mlsp_fill_batch != plain: {spec} bucket "
-                         f"{rows_p}x{cols_p} cap {group_cap}: max |diff| "
-                         f"{err}")
+                         f"{rows_p}x{cols_p} cap {group_cap} headers "
+                         f"{headers} run {rep}: max |diff| {err}")
             batch_cuda.HEADER_CAP_WORDS = cap
+            got = batch_cuda.mlsp_fill_batch(*args, headers=True, **kw)
             for p, (y, x) in enumerate(pairs):
                 one = mlsp_cuda.mlsp_fill(
                     subst, ys[p].contiguous(), xs[p].contiguous(),
@@ -858,7 +880,8 @@ def time_fill_batch(torch, subst, S) -> dict:
     dev = torch.device("cuda")
     letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
     pairs = throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters)
-    r = dict(ms=0.0, headers_ms=0.0, plain_ms=0.0, max_abs_err=0)
+    r = dict(ms=0.0, headers_ms=0.0, plain_ms=0.0, max_abs_err=0,
+             launches=0, calls=0)
     work = [0, 0, 0, 0]  # bytes, ops: cost only; bytes, ops: with headers
     for (rows_p, cols_p), idxs in bucket_pairs(pairs, "pow2").items():
         if rows_p < TILE_FILL_MIN_ROWS:
@@ -871,7 +894,11 @@ def time_fill_batch(torch, subst, S) -> dict:
         r["plain_ms"] += cuda_ms(torch, lambda: want.update(
             mlsp_fill_batch_plain(*args, **kw)), 1)
         for key, headers in (("ms", False), ("headers_ms", True)):
+            before = batch_cuda.FILL_LAUNCHES
             got = batch_cuda.mlsp_fill_batch(*args, headers=headers, **kw)
+            if not headers:
+                r["launches"] += batch_cuda.FILL_LAUNCHES - before
+                r["calls"] += 1
             r[key] += cuda_ms(torch, lambda: batch_cuda.mlsp_fill_batch(
                 *args, headers=headers, **kw), 3)
             r["max_abs_err"] = max(r["max_abs_err"], max_abs_diff(
@@ -889,10 +916,12 @@ def time_fill_batch(torch, subst, S) -> dict:
     r["headers_bound_ms"], by = bound(work[2], work[3])
     log(f"phase throughput: mlsp_fill_batch on the pair_generated_1 {spec} "
         f"K5 buckets, bit-exact against mlsp_fill_batch_plain "
-        f"({r['plain_ms']:.1f} ms): cost only {r['ms']:.3f} ms (bound over "
-        f"live cells {r['bound_ms']:.4f} ms, {r['bound_by']}), with headers "
-        f"{r['headers_ms']:.3f} ms (bound over padded cells "
-        f"{r['headers_bound_ms']:.4f} ms, {by})")
+        f"({r['plain_ms']:.1f} ms): cost only {r['ms']:.3f} ms, "
+        f"{r['launches']} launches in {r['calls']} calls (bound over live "
+        f"cells {r['bound_ms']:.4f} ms, {r['bound_by']}, "
+        f"{100 * r['bound_ms'] / r['ms']:.2f}% of it; body share in the "
+        f"probe phase), with headers {r['headers_ms']:.3f} ms (bound over "
+        f"padded cells {r['headers_bound_ms']:.4f} ms, {by})")
     return r
 
 
@@ -1075,8 +1104,10 @@ def band_chain(torch, fill, subst, y, x, spec, rows, cols, R, TW,
 
 def check_banded_kernel(torch, subst, subst_np) -> int:
     """banded_pass (K7) against banded_pass_plain on the card, bit-exact,
-    on BANDED_CASES and the SW band clamp case; returns the number of
-    cases."""
+    on BANDED_CASES (each chain REPEATS times; those of D > 1 bands also
+    through giant2_fill on D entries of the one card, the bands' passes
+    concurrent on D streams), and the SW band clamp case; returns the
+    number of cases."""
     from gpuseqalign_tpu_torch.ops.banded_cuda import banded_pass
     from gpuseqalign_tpu_torch.ops.banded_plain import banded_pass_plain
 
@@ -1086,15 +1117,19 @@ def check_banded_kernel(torch, subst, subst_np) -> int:
             y, x = padded_inputs(torch, subst_np, rows, cols, BL * R, D * bc,
                                  400 + i)
             args = (subst, y, x, spec, rows, cols, R, TW, bc, D, BL)
-            got = band_chain(torch, banded_pass, *args)
             want = band_chain(torch, banded_pass_plain, *args)
-            torch.cuda.synchronize()
-            for c, (a, b) in enumerate(zip(got, want)):
-                err = max_abs_diff(torch, a, b)
-                if err:
-                    fail(f"banded_pass != plain: {spec} {rows}x{cols} R {R} "
-                         f"TW {TW} band_cols {bc} D {D} BL {BL}, call {c}: "
-                         f"max |diff| {err}")
+            for rep in range(REPEATS):
+                got = band_chain(torch, banded_pass, *args)
+                torch.cuda.synchronize()
+                for c, (a, b) in enumerate(zip(got, want)):
+                    err = max_abs_diff(torch, a, b)
+                    if err:
+                        fail(f"banded_pass != plain: {spec} {rows}x{cols} R "
+                             f"{R} TW {TW} band_cols {bc} D {D} BL {BL}, "
+                             f"call {c}, run {rep}: max |diff| {err}")
+                if D > 1:
+                    banded_streams(torch, subst, y, x, spec, rows, cols, R,
+                                   TW, bc, D, BL, want, rep)
             n += 1
     # The SW clamp (the TPU kernel's regression): a band left of the
     # pair's last column, row letters 0, band letters never 0, so every
@@ -1117,12 +1152,42 @@ def check_banded_kernel(torch, subst, subst_np) -> int:
     return n + 1
 
 
+def banded_streams(torch, subst, y, x, spec, rows, cols, R, TW, bc, D, BL,
+                   want, rep) -> None:
+    """giant2_fill on a mesh of D entries of the one card (each band's
+    passes on its own stream, one K7 call a pass, halos after CUDA events)
+    against band_chain's plain calls ``want``; ``rep`` numbers the run."""
+    from gpuseqalign_tpu_torch.parallel import giant2_fill, make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * D, axis_name="sp")
+    n_pass = (y.numel() - 1) // (BL * R)
+    bands = giant2_fill(subst, [y], [x], GAPO, GAPE[spec], [rows + 1],
+                        [cols + 1], mesh=mesh, R=R, TW=TW, band_cols=bc,
+                        BL=BL, **kind_gap(spec))[0]
+    torch.cuda.synchronize()
+    for k, grid in enumerate(bands):
+        for p in range(n_pass):
+            b0, w = p * BL, want[k * n_pass + p]
+            for name, t in w.items():
+                if name == "best":
+                    g = grid["best"][p].clone()  # the pair's frame
+                    g[1] -= p * BL * R
+                    g[2] -= k * bc
+                else:
+                    g = grid[name][b0:b0 + BL + (name in ("hrows", "frows"))]
+                if not torch.equal(g, t):
+                    fail(f"giant2_fill != plain: {spec} {rows}x{cols} R {R} "
+                         f"TW {TW} band_cols {bc} D {D} BL {BL}, band {k} "
+                         f"pass {p} {name}, run {rep}")
+
+
 def time_banded(torch, subst, subst_np, n, S) -> dict:
     """K7 on the whole band of an n x n pair at D = 1 (the engine's
     geometry and its one call), every spec: CUDA-event ms (mean of 3
     after a warm-up), its plain version's (one call), max |diff| over
     every output, launches, GCUPS and bound."""
     from gpuseqalign_tpu_torch.core.types import AlgParams
+    from gpuseqalign_tpu_torch.ops import banded_cuda
     from gpuseqalign_tpu_torch.ops.banded_cuda import banded_pass
     from gpuseqalign_tpu_torch.ops.banded_plain import banded_pass_plain
     from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
@@ -1135,7 +1200,9 @@ def time_banded(torch, subst, subst_np, n, S) -> dict:
         args = (subst, y, x, spec, n, n, R, TW, bc, 1, rows_p // R)
         band_chain(torch, banded_pass, *args)  # warm-up
         ms = cuda_ms(torch, lambda: band_chain(torch, banded_pass, *args), 3)
+        banded_cuda.LAUNCHES = 0
         got = band_chain(torch, banded_pass, *args)
+        launches = banded_cuda.LAUNCHES
         want = []
         plain_ms = cuda_ms(torch, lambda: want.extend(
             band_chain(torch, banded_pass_plain, *args)), 1)
@@ -1146,12 +1213,13 @@ def time_banded(torch, subst, subst_np, n, S) -> dict:
         out[spec] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                          bound_ms=b_ms, bound_by=b_by,
                          gcups=n * n / (ms * 1e-3) / 1e9,
-                         launches_per_fill=rows_p // R + bc // TW - 1)
+                         launches_per_fill=launches)
         log(f"phase kernels: banded_pass {spec} {n}x{n} D 1 (band "
             f"{rows_p}x{bc}, tile {R}x{TW}): kernel {ms:.3f} ms "
-            f"({out[spec]['gcups']:.3f} GCUPS, "
-            f"{out[spec]['launches_per_fill']} launches), plain "
-            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), bit-exact")
+            f"({out[spec]['gcups']:.3f} GCUPS, {launches} launches a "
+            f"call), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / ms:.2f}% of it; body share in the probe phase), "
+            f"bit-exact")
         del got, want
     return out
 
@@ -1864,24 +1932,31 @@ def body_shares(per_spec, dense_spec, fill, runs, banded, giant, probe):
         # The batch kernels' instruction counts cover their live cells.
         return e["ops"] / cell_insns(spec) / (e["ms"] * 1e-3) / 1e9
 
-    rows = {}
+    rows = {}  # name: (GCUPS, spec, launches a call)
     for spec in SPECS:
-        rows[f"mlsp_fill {spec} 23728^2"] = (per_spec[spec]["gcups"], spec)
-        rows[f"dense_fill {spec} 23728^2"] = (dense_spec[spec]["gcups"], spec)
-        rows[f"banded_pass {spec} 23728^2"] = (banded[spec]["gcups"], spec)
-        rows[f"banded_pass {spec} 100000^2"] = (
-            giant["full"]["specs"][spec]["gcups"], spec)
+        rows[f"mlsp_fill {spec} 23728^2"] = (
+            per_spec[spec]["gcups"], spec,
+            per_spec[spec]["launches_per_fill"])
+        rows[f"dense_fill {spec} 23728^2"] = (
+            dense_spec[spec]["gcups"], spec,
+            dense_spec[spec]["launches_per_fill"])
+        rows[f"banded_pass {spec} 23728^2"] = (
+            banded[spec]["gcups"], spec, banded[spec]["launches_per_fill"])
+        g = giant["full"]["specs"][spec]
+        rows[f"banded_pass {spec} 100000^2"] = (g["gcups"], spec,
+                                                g["launches"])
     rows["mlsp_fill_batch nw_ag pair_generated_1"] = (
-        live_gcups(fill, "nw_ag"), "nw_ag")
+        live_gcups(fill, "nw_ag"), "nw_ag", fill["launches"] / fill["calls"])
     rows["mlsp_tiny nw_ag synth_16384"] = (live_gcups(
-        runs["synth_16384_nw_ag"]["kernels"]["mlsp_tiny"], "nw_ag"), "nw_ag")
+        runs["synth_16384_nw_ag"]["kernels"]["mlsp_tiny"], "nw_ag"), "nw_ag",
+        None)
     out = {}
-    for name, (gcups, spec) in rows.items():
+    for name, (gcups, spec, launches) in rows.items():
         body = probe[f"roofline_{spec}"]["gcups"]
         out[name] = dict(gcups=gcups, body_gcups=body,
                          body_share=gcups / body,
                          bound_share=gcups * 1e9 * cell_insns(spec)
-                         / INT32_OPS_PER_S)
+                         / INT32_OPS_PER_S, launches_per_call=launches)
     log("phase probe body shares: " + json.dumps(out))
     return out
 
@@ -2175,7 +2250,7 @@ def main() -> int:
     }, {
         "name": "mlsp_fill_batch",
         "route": "cuda",
-        "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_fill.cu",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/strip_fill.cu",
         "replaces": "gpuseqalign_tpu/ops/pallas_wavefront2.py:1580",
         "launches": k5["launches"],
         "max_abs_err": fill["max_abs_err"],
@@ -2211,7 +2286,7 @@ def main() -> int:
     }, {
         "name": "banded_pass",
         "route": "cuda",
-        "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_fill.cu",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/strip_fill.cu",
         "replaces": "gpuseqalign_tpu/ops/pallas_banded.py:61",
         "launches": giant["launches"],
         "max_abs_err": max(v["max_abs_err"] for v in (

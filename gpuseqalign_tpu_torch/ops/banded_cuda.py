@@ -1,5 +1,6 @@
-"""Wrapper of the CUDA banded pass (K7, the banded entry of
-``ops/csrc/mlsp_fill.cu``), the per-band fill of the giant-pair engine.
+"""Wrapper of the CUDA banded pass (K7, ``strip_fill_banded`` of
+``ops/csrc/strip_fill.cu``, host side ``ops/strip_cuda.py``), the per-band
+fill of the giant-pair engine.
 
 ``banded_pass`` takes a pass's inputs in the meaning of gpuseqalign_tpu's
 ``ops/pallas_banded.py::banded_pass`` (``prev_row``, ``prevF_row``,
@@ -12,11 +13,12 @@ number of row blocks: the engine gives one call a whole band where its
 halo is known in advance.
 
 On a CUDA tensor it writes the inputs into the header grid where K1 has
-the analytic edge and launches the kernel, one launch per tile
-anti-diagonal on the current stream, with no host sync; a launch error
-raises. On a CPU tensor it runs the plain version. ``out``, when given,
-is a dict of preallocated grids (``alloc_band``) that the pass fills in
-place, so that the engine's passes write into one grid per band.
+the analytic edge and launches the kernel once on the current stream, with
+no host sync: every row strip of the pass in flight at once, each strip
+following the one above it column by column. A launch error raises. On a
+CPU tensor it runs the plain version. ``out``, when given, is a dict of
+preallocated grids (``alloc_band``) that the pass fills in place, so that
+the engine's passes write into one grid per band.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main path
 went through the kernel.
@@ -30,7 +32,8 @@ import torch
 
 from ..core.types import NEG_INF_I32
 from .banded_plain import banded_pass_plain
-from .mlsp_cuda import load_lib, tile_best
+from . import strip_cuda
+from .mlsp_cuda import tile_best
 
 LAUNCHES = 0
 
@@ -118,7 +121,7 @@ def banded_pass(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device: {dev}")
 
-    lib = load_lib()
+    lib = strip_cuda.load_lib()
     hrows, hcols = out["hrows"], out["hcols"]
     frows, ecols = out.get("frows"), out.get("ecols")
     # The band's inputs where K1 has the analytic edge.
@@ -129,31 +132,29 @@ def banded_pass(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
         frows[0].copy_(prevF_row)
         frows[1:, 0] = NEG_INF_I32
         ecols[:, :, 0] = haloE.view(B, tile_h)
-    i32 = dict(dtype=torch.int32, device=dev)
-    tbest = torch.empty((B * jtE, 3), **i32) if is_sw else None
-    n_scratch = lib.mlsp_fill_scratch_words(
-        subst.shape[0], tile_h, tile_w, jtE, int(is_sw), int(affine))
-    scratch = torch.empty(n_scratch, **i32) if n_scratch else None
+    sched = strip_cuda.schedule(tile_h, tile_w)
+    ns = strip_cuda.n_strips(B * tile_h, sched.rows)
+    prog, carry = strip_cuda.alloc_scratch(1, ns, band_cols,
+                                           not sched.carry_in_headers,
+                                           affine, dev)
+    tbest = (torch.zeros((ns, 3), dtype=torch.int32, device=dev)
+             if is_sw else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for d in range(B + jtE - 1):
-            rc = lib.mlsp_fill_banded_diag(
-                int(is_sw), int(affine), ptr(subst), subst.shape[0],
-                ptr(y), ptr(x), gapo, gape, adjr_loc, adjc_loc,
-                tile_h, tile_w, B, jtE, d,
-                ptr(hrows), ptr(hcols), ptr(frows), ptr(ecols), ptr(tbest),
-                ptr(scratch), stream,
-            )
-            if rc != 0:
-                raise RuntimeError(
-                    f"banded_pass launch failed on diagonal {d}: "
-                    f"cudaError {rc}"
-                )
-            LAUNCHES += 1
+        rc = lib.strip_fill_banded(
+            int(is_sw), int(affine), sched.lane_rows, ptr(subst),
+            subst.shape[0], ptr(y), ptr(x), gapo, gape,
+            adjr_loc, adjc_loc, tile_h, tile_w, B, jtE,
+            ptr(hrows), ptr(hcols), ptr(frows), ptr(ecols), ptr(tbest),
+            ptr(carry), ptr(prog), stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"banded_pass launch failed: cudaError {rc}")
+        LAUNCHES += 1
     if is_sw:
         out["best"] = tile_best(tbest.view(1, -1, 3), band_cols + 1)[0]
     return out

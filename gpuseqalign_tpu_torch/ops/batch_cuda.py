@@ -1,8 +1,11 @@
 """Wrappers of the batch engine's two CUDA fills.
 
-``mlsp_fill_batch`` is the batched tile-header fill (the batched entry of
-``ops/csrc/mlsp_fill.cu``; plain version ``batch_plain.mlsp_fill_batch_plain``):
-one launch per tile anti-diagonal covers every pair of a group.
+``mlsp_fill_batch`` is the batched fill (``strip_fill_batch`` of
+``ops/csrc/strip_fill.cu``, host side ``ops/strip_cuda.py``; plain version
+``batch_plain.mlsp_fill_batch_plain``): one launch per group of pairs of a
+bucket, every strip of every pair of the group in flight at once. The
+engine's cost-only call fills each pair's live cells alone; with
+``headers=True`` it fills the padded grid and returns the tile headers.
 ``tiny_scores`` is the cost-only fill of small pairs
 (``ops/csrc/mlsp_tiny.cu``; plain version ``batch_plain.scores_batch_plain``):
 one launch per group, one thread block per pair.
@@ -25,16 +28,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import mlsp_cuda
+from . import mlsp_cuda, strip_cuda
 from .batch_plain import mlsp_fill_batch_plain, scores_batch_plain
 
 FILL_LAUNCHES = 0
 TINY_LAUNCHES = 0
 
-# One batched launch takes at most this many pairs (gridDim.y).
-MAX_PAIRS_PER_LAUNCH = 65535
-# Device words of tile headers (and of tiny-fill scratch rows) one group
-# of pairs may hold; a larger bucket runs as several groups.
+# Device words of tile headers and carry rows (and of tiny-fill scratch
+# rows) one group of pairs may hold; a larger bucket runs as several groups.
 HEADER_CAP_WORDS = 1 << 28
 # Threads of one tiny-fill block (a multiple of 32, at most 256). Large
 # blocks shorten each pair's serial chain and win while the bucket's blocks
@@ -106,9 +107,9 @@ def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     """Batched sparse fill: ``cost`` (B,) and for SW ``best`` (B, 3).
     ``headers=True`` also returns the tile headers in
     ``mlsp_fill_plain``'s layout (on a leading pair axis): all the outputs
-    of ``mlsp_fill_batch_plain``. The kernel writes the headers either
-    way, since they carry the fill from tile to tile; without ``headers``
-    the card holds them one group of pairs at a time."""
+    of ``mlsp_fill_batch_plain``. Without ``headers`` the kernel fills each
+    pair's live cells alone and writes no header; the card holds one
+    group of pairs' carry rows (or headers) at a time."""
     global FILL_LAUNCHES
     _check(subst, ys, xs, adjrs, adjcs)
     rows_p, cols_p = ys.shape[1] - 1, xs.shape[1] - 1
@@ -122,7 +123,7 @@ def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
         keep = ("cost", "best") if not headers else tuple(out)
         return {k: v for k, v in out.items() if k in keep}
 
-    lib = mlsp_cuda.load_lib()
+    lib = strip_cuda.load_lib()
     dev = ys.device
     n = ys.shape[0]
     is_sw = kind == "sw"
@@ -130,12 +131,14 @@ def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     trows, tcols = rows_p // tile_h, cols_p // tile_w
     width = cols_p + 1
     i32 = dict(dtype=torch.int32, device=dev)
-    S = subst.shape[0]
-    n_scratch = lib.mlsp_fill_scratch_words(S, tile_h, tile_w, tcols,
-                                            int(is_sw), int(affine))
-    per_pair = (trows * width + rows_p * tcols) * (2 if affine else 1)
-    per_pair += n_scratch
-    group = max(1, min(MAX_PAIRS_PER_LAUNCH, HEADER_CAP_WORDS // per_pair))
+    sched = strip_cuda.schedule(tile_h, tile_w)
+    ns = strip_cuda.n_strips(rows_p, sched.rows)
+    carry = not (headers and sched.carry_in_headers)
+    per_pair = (sum(strip_cuda.scratch_words(1, ns, cols_p, carry, affine))
+                + 3 * ns)
+    if headers:
+        per_pair += (trows * width + rows_p * tcols) * (2 if affine else 1)
+    group = max(1, HEADER_CAP_WORDS // per_pair)
 
     cost = torch.zeros(n, **i32)
     parts = []
@@ -143,33 +146,30 @@ def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
         stream = _stream(dev)
         for g0 in range(0, n, group):
             g = min(group, n - g0)
-            out = mlsp_cuda.alloc_headers((g,), rows_p, cols_p, tile_h,
-                                          tile_w, gapo, gape, kind, gap, dev)
-            hrows, hcols = out["hrows"], out["hcols"]
-            frows, ecols = out.get("frows"), out.get("ecols")
-            tbest = scratch = None
-            if is_sw:
-                tbest = torch.empty((g, trows * tcols, 3), **i32)
-            if n_scratch:
-                scratch = torch.empty(g * n_scratch, **i32)
-            for d in range(trows + tcols - 1):
-                rc = lib.mlsp_fill_batch_diag(
-                    int(is_sw), int(affine), _ptr(subst), S,
-                    _ptr(ys[g0:]), _ptr(xs[g0:]), gapo, gape,
-                    _ptr(adjrs[g0:]), _ptr(adjcs[g0:]),
-                    tile_h, tile_w, trows, tcols, d, g,
-                    _ptr(hrows), _ptr(hcols), _ptr(frows), _ptr(ecols),
-                    _ptr(tbest), _ptr(cost[g0:]), _ptr(scratch), stream,
-                )
-                if rc != 0:
-                    raise RuntimeError(
-                        f"mlsp_fill_batch launch failed on diagonal {d}: "
-                        f"cudaError {rc}")
-                FILL_LAUNCHES += 1
+            out = {}
+            if headers:
+                out = mlsp_cuda.alloc_headers((g,), rows_p, cols_p, tile_h,
+                                              tile_w, gapo, gape, kind, gap,
+                                              dev)
+            prog, rows = strip_cuda.alloc_scratch(g, ns, cols_p, carry,
+                                                  affine, dev)
+            tbest = torch.zeros((g, ns, 3), **i32) if is_sw else None
+            rc = lib.strip_fill_batch(
+                int(is_sw), int(affine), sched.lane_rows, int(headers),
+                _ptr(subst), subst.shape[0],
+                _ptr(ys[g0:]), _ptr(xs[g0:]), gapo, gape,
+                _ptr(adjrs[g0:]), _ptr(adjcs[g0:]),
+                tile_h, tile_w, trows, tcols, g,
+                _ptr(out.get("hrows")), _ptr(out.get("hcols")),
+                _ptr(out.get("frows")), _ptr(out.get("ecols")),
+                _ptr(tbest), _ptr(cost[g0:]), _ptr(rows), _ptr(prog), stream,
+            )
+            if rc != 0:
+                raise RuntimeError(
+                    f"mlsp_fill_batch launch failed: cudaError {rc}")
+            FILL_LAUNCHES += 1
             if is_sw:
                 out["best"] = mlsp_cuda.tile_best(tbest, width)
-            if not headers:
-                out = {k: v for k, v in out.items() if k == "best"}
             parts.append(out)
 
     res = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}

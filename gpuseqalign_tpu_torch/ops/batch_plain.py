@@ -7,9 +7,9 @@ whole stacked bucket at once: the ``(B, 1+cols_p)`` rows are one tensor,
 loop over rows. It is the plain version of the tiny-pair kernel
 (``ops/csrc/mlsp_tiny.cu``) and of the batched tile fill's cost and best.
 
-``mlsp_fill_batch_plain`` is the plain version of the batched tile fill
-(the batched entry of ``ops/csrc/mlsp_fill.cu``): ``mlsp_fill_plain`` run
-pair by pair, with the cost captured.
+``mlsp_fill_batch_plain`` is the plain version of the batched fill
+(``strip_fill_batch`` of ``ops/csrc/strip_fill.cu``): ``mlsp_fill_plain``
+run pair by pair, with the cost captured.
 
 Both run on whatever device their tensors lie on; every output is int32.
 """

@@ -4,11 +4,11 @@
 returns the same outputs. On a CUDA tensor it launches the kernel of
 ``ops/csrc/mlsp_fill.cu`` (one launch per tile anti-diagonal, on the
 current stream, no host sync between launches) or raises; it uses the
-plain version only for tensors that lie on the CPU. ``load_lib``,
-``alloc_headers`` and ``tile_best`` serve the batched entry of the same
-library too (``batch_cuda.mlsp_fill_batch``), the first two its dense
-entry (``dense_cuda.dense_fill``), and ``load_lib`` and ``tile_best`` its
-banded entry (``banded_cuda.banded_pass``).
+plain version only for tensors that lie on the CPU. ``load_lib`` and
+``alloc_headers`` serve the dense entry of the same library too
+(``dense_cuda.dense_fill``); ``alloc_headers`` and ``tile_best`` serve the
+strip kernel's wrappers (``batch_cuda.mlsp_fill_batch``,
+``banded_cuda.banded_pass``).
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main path
 went through the kernel.
@@ -47,14 +47,6 @@ def load_lib() -> ctypes.CDLL:
             p,                         # scratch, stream
         ]
         lib.mlsp_fill_diag.restype = ctypes.c_int
-        lib.mlsp_fill_batch_diag.argtypes = [
-            i, i, p, i, p, p,          # sw, affine, subst, S, ys, xs
-            i, i, p, p,                # gapo, gape, adjrs, adjcs
-            i, i, i, i, i, i,          # th, tw, trows, tcols, d, npairs
-            p, p, p, p, p, p,          # hrows, hcols, frows, ecols, tbest,
-            p, p,                      # cost, scratch, stream
-        ]
-        lib.mlsp_fill_batch_diag.restype = ctypes.c_int
         lib.mlsp_fill_dense_diag.argtypes = [
             i, i, p, i, p, p,          # sw, affine, subst, S, y, x
             i, i, i, i,                # gapo, gape, adjr, adjc
@@ -63,9 +55,8 @@ def load_lib() -> ctypes.CDLL:
             p, p,                      # scratch, stream
         ]
         lib.mlsp_fill_dense_diag.restype = ctypes.c_int
-        for entry in (lib.mlsp_fill_banded_diag, lib.mlsp_fill_bodyoff_diag):
-            entry.argtypes = lib.mlsp_fill_diag.argtypes
-            entry.restype = ctypes.c_int
+        lib.mlsp_fill_bodyoff_diag.argtypes = lib.mlsp_fill_diag.argtypes
+        lib.mlsp_fill_bodyoff_diag.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -99,9 +90,10 @@ def alloc_headers(lead: tuple, rows_p: int, cols_p: int, tile_h: int,
 
 
 def tile_best(tbest: torch.Tensor, width: int) -> torch.Tensor:
-    """Per pair, the row-major first maximum over its tiles' SW bests: the
-    largest value, then the smallest i, then the smallest j; (0, 0, 0) if
-    nothing is > 0. tbest (B, tiles, 3) -> (B, 3)."""
+    """Per pair, the row-major first maximum over the SW bests of any
+    partition of its matrix (tiles, or row strips): the largest value,
+    then the smallest i, then the smallest j; (0, 0, 0) if nothing is
+    > 0. tbest (B, parts, 3) -> (B, 3)."""
     v = tbest[:, :, 0]
     key = tbest[:, :, 1].long() * width + tbest[:, :, 2].long()
     key = torch.where(v == v.amax(1, keepdim=True), key,

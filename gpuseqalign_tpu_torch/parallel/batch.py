@@ -4,10 +4,10 @@ Port of gpuseqalign_tpu's ``parallel/batch.py``. Pairs are bucketed by
 padded shape, each bucket is stacked and copied to the card once, and
 every bucket goes through a kernel, chosen by its padded height:
 
-  rows_p >= 1024  the batched tile fill (``ops/batch_cuda.mlsp_fill_batch``,
-                  the batched entry of ``ops/csrc/mlsp_fill.cu``), tile
-                  gcd(rows_p, 128) x gcd(cols_p, 512), headers held one
-                  group of pairs at a time
+  rows_p >= 1024  the batched fill (``ops/batch_cuda.mlsp_fill_batch``,
+                  ``ops/csrc/strip_fill.cu``), tile gcd(rows_p, 128) x
+                  gcd(cols_p, 512): each pair's live cells in row strips,
+                  one launch a group of pairs
   rows_p <  1024  the tiny-pair fill (``ops/batch_cuda.tiny_scores``,
                   ``ops/csrc/mlsp_tiny.cu``), one thread block per pair
 

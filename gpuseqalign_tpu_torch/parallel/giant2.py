@@ -15,7 +15,8 @@ stream of its own, and the halo copy into band k + 1's device waits on a
 CUDA event recorded after band k's pass (on the CPU the same order runs
 in one thread). The pass height changes no output, so with D = 1, where
 every halo is the matrix's own left column, each pair's band is one K7
-call: trows + tcols - 1 tile-diagonal launches, K1's count.
+call. Every K7 call is one launch (its row strips pipelined on the card),
+so D > 1 costs one launch a pass.
 
 Geometry is the JAX package's off-TPU branch, so the sparse layout
 matches its engine tile for tile, padded tile rows included: R, TW, K

@@ -71,7 +71,8 @@ print(json.dumps({"mods": mods, "loaded": sorted(sys.modules)}))
                 "parallel.mesh", "parallel.giant2", "parallel.giant",
                 "parallel.multihost", "ops.probe_plain", "ops.probe_cuda",
                 "bench.vpu_probe", "bench.headline", "ops.wavefront",
-                "ops.wavefront_cuda", "ops.wavefront_plain"):
+                "ops.wavefront_cuda", "ops.wavefront_plain",
+                "ops.strip_cuda"):
         assert f"gpuseqalign_tpu_torch.{mod}" in got["mods"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
