@@ -11,16 +11,23 @@ Phases, each of which makes the script exit non-zero if it fails:
                 nvcc per source, started together
   2. kernels    each kernel against its plain PyTorch version on the card,
                 all four specs, several shapes: bit-exact (int32, no
-                tolerance). mlsp_fill (one pair), mlsp_fill_batch (K5, the
-                strip kernel: a bucket of pairs with headers and cost-only,
-                ragged live regions, tile_h 128, 16 and 1, a tall bucket of
-                201 strips, both layouts, each case 3 times; also held pair
-                by pair against mlsp_fill), mlsp_tiny (cost-only, small
-                pairs), dense_fill (the full H of one pair, against
-                rowscan_dense), banded_pass (K7, the strip kernel: chains of
+                tolerance). mlsp_fill (K1, the strip kernel's pair entry:
+                tiles from 1x1, 3x5, tile_w < 32 and tile_h 16 to 288x40,
+                the 1x600 / 600x1 tile-corner pairs, one call of 201
+                strips; each case 3 times),
+                mlsp_fill_batch (K5, the strip kernel: a bucket of pairs
+                with headers and cost-only, ragged live regions, tile_h
+                128, 16 and 1, a tall bucket of 201 strips, each case 3
+                times; also held pair by pair against mlsp_fill),
+                mlsp_tiny (cost-only, small pairs), dense_fill (K3, the
+                strip kernel's dense entry: the full H of one pair against
+                rowscan_dense, ragged strips and chunks, a pair of 202
+                strips, other strip heights and warps a block on two
+                shapes; each case 3 times),
+                banded_pass (K7, the strip kernel: chains of
                 passes over column bands, each band's halo from the band to
                 its left, the SW clamp, 1x1 and 5x300, one call of several
-                passes' rows, one call of 200 strips, both layouts, each
+                passes' rows, one call of 200 strips, each
                 chain 3 times; chains of D > 1 bands also through
                 giant2_fill on D streams of the one card) and the v1
                 wavefront fills mlsp_nw_lg_fill (K2) and dense_nw_lg_fill
@@ -41,7 +48,11 @@ Phases, each of which makes the script exit non-zero if it fails:
                 nw_lg (cpu1_st_row, tpu7_pallas_mlsp, tpu3_pallas_dense,
                 tpu9_giant_mlsp),
                 then each single-pair kernel against its plain version at
-                that size for every spec, timed with CUDA events; then the
+                that size for every spec, timed with CUDA events, with its
+                launches a fill: K1's pair entry in turns with the batch
+                entry's route (mlsp_fill_batch with headers, one pair), K3
+                at its default schedule and swept over strip heights and
+                warps a block; then the
                 pair through the v1 flows (wavefront.align_mlsp at 128x512,
                 wavefront.align_dense at R 1024) in the registry's sparse
                 and dense bundles, cost, score hash and trace hash equal
@@ -81,7 +92,8 @@ Phases, each of which makes the script exit non-zero if it fails:
                 fullstep strips against the oracle on the same letters;
                 then bench.vpu_probe's ops, skeleton K sweeps, fullstep
                 variants, int16, roofline_body for the four specs and
-                probe_gridcost (K1 at 23728^2, nw_lg and nw_ag), the
+                probe_gridcost (K1 at 23728^2 and one strip alone, nw_lg
+                and nw_ag: body, machinery, a strip step, the lag), the
                 compiler's resources and SASS opcodes of each probe
                 kernel (logs/chip_smoke/probe_sass.json), and
                 bench.headline once (nw_ag at 23728^2, its JSON line);
@@ -339,29 +351,38 @@ def run_cli(main, spec, params, pair_lines, name):
 
 
 def check_single_kernel(torch, subst, subst_np) -> int:
-    """mlsp_fill against mlsp_fill_plain; returns the number of cases."""
+    """mlsp_fill (K1, strip_fill_pair) against mlsp_fill_plain, each case
+    REPEATS times; returns the number of cases."""
     from gpuseqalign_tpu_torch.ops import mlsp_cuda
     from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
 
     shapes = [  # rows, cols, tile_h, tile_w
         (2000, 3000, 128, 512),
         (777, 2049, 64, 76),
-        (300, 700, 288, 40),  # taller than wide, two row groups
-        (64, 13000, 32, 13000),  # top row in global scratch, not smem
+        (300, 700, 288, 40),  # tile taller than a strip: carry scratch
+        (64, 13000, 32, 13000),
         (1, 1, 128, 512),
         (50, 1, 128, 512),    # adjc == 2
+        (97, 300, 1, 1),      # tile 1 x 1: strips of 32 rows
+        (400, 350, 3, 5),     # tile 3 x 5: carry scratch
+        (500, 800, 128, 20),  # tile_w < 32
+        (600, 500, 16, 64),   # tile_h 16
+        (1, 600, 128, 512),   # the tile-corner pairs (ROADMAP Queue 3)
+        (600, 1, 512, 128),
+        (6430, 300, 32, 128),  # one call of 201 strips of 32 rows
     ]
     for spec in SPECS:
         for i, (rows, cols, th, tw) in enumerate(shapes):
             y, x = padded_inputs(torch, subst_np, rows, cols, th, tw, i)
             kw = fill_args(spec, rows, cols, th, tw)
-            got = mlsp_cuda.mlsp_fill(subst, y, x, **kw)
             want = mlsp_fill_plain(subst, y, x, **kw)
-            torch.cuda.synchronize()
-            err = max_abs_diff(torch, got, want)
-            if err:
-                fail(f"kernel != plain: {spec} {rows}x{cols} tile "
-                     f"{th}x{tw}, max |diff| {err}")
+            for rep in range(REPEATS):
+                got = mlsp_cuda.mlsp_fill(subst, y, x, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_diff(torch, got, want)
+                if err:
+                    fail(f"kernel != plain: {spec} {rows}x{cols} tile "
+                         f"{th}x{tw} run {rep}, max |diff| {err}")
     return len(SPECS) * len(shapes)
 
 
@@ -385,66 +406,91 @@ def dense_bound_ms(spec, adjr, adjc, S) -> tuple:
     return bound(nbytes, cell_insns(spec) * (adjr - 1) * (adjc - 1))
 
 
+# K3's schedules besides the default, held against rowscan_dense in the
+# kernels phase: (rows a lane, warps a block).
+DENSE_SCHEDULES = ((1, 4), (2, 2), (8, 3), (4, 4), (1, 1))
+
+
 def check_dense_kernel(torch, subst, subst_np) -> int:
-    """dense_fill against the (adjr, adjc) window of rowscan_dense over
-    the same padded inputs, bit-exact; returns the number of cases."""
+    """dense_fill (K3, strip_fill_dense) against the (adjr, adjc) window of
+    rowscan_dense over the same padded inputs, bit-exact, each case
+    REPEATS times, at the default schedule and, on two shapes, at
+    DENSE_SCHEDULES; returns the number of cases."""
     from gpuseqalign_tpu_torch.ops import dense_cuda
     from gpuseqalign_tpu_torch.ops.dense_plain import rowscan_dense
 
     shapes = [  # residues of y and x
         (1000, 1000), (700, 2100), (2100, 700),  # square, both rectangles
         (1, 3000), (3000, 1), (1, 1),            # 1 x N, N x 1, 1 x 1
-        (777, 513), (129, 1025), (300, 37),      # not tile multiples
+        (777, 513), (129, 1025), (300, 37),      # ragged strips and chunks
         (0, 50), (50, 0),                        # an empty side: no launch
+        (6450, 200),                             # 202 strips of 32 rows
     ]
+    n = 0
     for spec in SPECS:
         for i, (rows, cols) in enumerate(shapes):
             # Padded past the true lengths, as the host flow pads them.
             y, x = padded_inputs(torch, subst_np, rows, cols, 128, 128, i)
             adjr, adjc = rows + 1, cols + 1
             kw = kind_gap(spec)
-            got = dense_cuda.dense_fill(subst, y, x, GAPO, GAPE[spec], adjr,
-                                        adjc, **kw)
-            want = rowscan_dense(subst, y, x, GAPO, GAPE[spec], **kw)
-            torch.cuda.synchronize()
-            err = rows_max_abs_diff(torch, got, want[:adjr, :adjc])
-            if err:
-                fail(f"dense_fill != rowscan_dense: {spec} {rows}x{cols}, "
-                     f"max |diff| {err}")
-    return len(SPECS) * len(shapes)
+            want = rowscan_dense(subst, y, x, GAPO, GAPE[spec],
+                                 **kw)[:adjr, :adjc]
+            scheds = [{}]
+            if rows == 6450:
+                scheds = [dict(_lane_rows=1)]
+            if (rows, cols) in ((1000, 1000), (777, 513)):
+                scheds += [dict(_lane_rows=k, _warps=w)
+                           for k, w in DENSE_SCHEDULES]
+            for sched, rep in itertools.product(scheds, range(REPEATS)):
+                got = dense_cuda.dense_fill(subst, y, x, GAPO, GAPE[spec],
+                                            adjr, adjc, **kw, **sched)
+                torch.cuda.synchronize()
+                err = rows_max_abs_diff(torch, got, want)
+                if err:
+                    fail(f"dense_fill != rowscan_dense: {spec} {rows}x{cols}"
+                         f" {sched or 'default'} run {rep}, max |diff| {err}")
+            n += len(scheds)
+    return n
 
 
-def sweep_dense_tiles(torch, subst, subst_np, n) -> None:
-    """dense_fill's CUDA-event time (every spec at n x n, mean of 3 after
-    a warm-up) against its tile, each tile's H held against the default
-    tile's."""
-    from gpuseqalign_tpu_torch.ops import dense_cuda
+def sweep_dense(torch, subst, subst_np, n, S) -> dict:
+    """dense_fill's CUDA-event time (every spec at n x n, mean of 2 after
+    a warm-up) against its schedule: rows a lane and warps a block (where
+    the staging buffers fit); each schedule's H held against the
+    default's. Returns {spec: {schedule: ms}}."""
+    from gpuseqalign_tpu_torch.ops import dense_cuda, strip_cuda
 
-    default = (dense_cuda.TILE_H, dense_cuda.TILE_W)
-    tiles = [default, (128, 512), (128, 256), (128, 64), (256, 256),
-             (256, 128)]
     y, x = padded_inputs(torch, subst_np, n, n, 128, 128, 300)
+    out = {}
     for spec in SPECS:
         kw = dict(kind_gap(spec), adjr=n + 1, adjc=n + 1)
+        want = dense_cuda.dense_fill(subst, y, x, GAPO, GAPE[spec], **kw)
         times = {}
-        for th, tw in tiles:
-            dense_cuda.TILE_H, dense_cuda.TILE_W = th, tw
+        for k in strip_cuda.LANE_ROWS:
+            top = strip_cuda.max_warps(k, S, True)
+            for w in (1, 2, 4):
+                if w > top:
+                    continue
 
-            def fill():
-                return dense_cuda.dense_fill(subst, y, x, GAPO, GAPE[spec],
-                                             **kw)
+                def fill(k=k, w=w):
+                    return dense_cuda.dense_fill(
+                        subst, y, x, GAPO, GAPE[spec], **kw, _lane_rows=k,
+                        _warps=w)
 
-            got = fill()
-            if (th, tw) == default:
-                want = got
-            elif not torch.equal(got, want):
-                fail(f"dense_fill tile {th}x{tw} != tile {default}: {spec}")
-            del got
-            times[f"{th}x{tw}"] = cuda_ms(torch, fill, 3)
-        dense_cuda.TILE_H, dense_cuda.TILE_W = default
+                got = fill()
+                if not torch.equal(got, want):
+                    fail(f"dense_fill K {k} warps {w} != the default "
+                         f"schedule: {spec}")
+                del got
+                times[f"K{k}_w{w}"] = cuda_ms(torch, fill, 2)
         del want
-        log(f"phase full-size dense_fill {spec} {n}x{n}: ms by tile "
-            + ", ".join(f"{k}: {v:.3f}" for k, v in times.items()))
+        best = min(times, key=times.get)
+        log(f"phase full-size dense_fill sweep {spec} {n}x{n}: ms by "
+            f"schedule " + ", ".join(f"{k}: {v:.3f}"
+                                     for k, v in times.items())
+            + f"; fastest {best}")
+        out[spec] = times
+    return out
 
 
 def release_seq():
@@ -1981,10 +2027,12 @@ def main() -> int:
     from gpuseqalign_tpu_torch.io.subst import parse_subst_file
     from gpuseqalign_tpu_torch.ops import (
         banded_cuda,
+        batch_cuda,
         build,
         dense_cuda,
         mlsp_cuda,
         probe_cuda,
+        strip_cuda,
     )
     from gpuseqalign_tpu_torch.ops.dense_plain import rowscan_dense
     from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
@@ -2098,40 +2146,65 @@ def main() -> int:
                 + f"; {n_launch} kernel launches")
         times["full_cli"] = time.perf_counter() - t0
 
-        # ... and the kernel against its plain version at that size, timed.
+        # ... and K1 against its plain version at that size, timed: the
+        # pair entry (mlsp_fill, PAIR_WARPS warps a block) and, in turns
+        # with it, the batch entry's route (mlsp_fill_batch with headers,
+        # one pair, 4 warps a block).
         t0 = time.perf_counter()
         n, th, tw = FULL_N, 128, 512
         for i, spec in enumerate(SPECS):
             y, x = padded_inputs(torch, subst_np, n, n, th, tw, 100 + i)
             kw = fill_args(spec, n, n, th, tw)
-            mlsp_cuda.mlsp_fill(subst, y, x, **kw)  # warm-up
-            ms = cuda_ms(torch,
-                         lambda: mlsp_cuda.mlsp_fill(subst, y, x, **kw), 3)
-            got = mlsp_cuda.mlsp_fill(subst, y, x, **kw)
+            one = torch.tensor([n + 1], dtype=torch.int32, device="cuda")
+
+            def pair():
+                return mlsp_cuda.mlsp_fill(subst, y, x, **kw)
+
+            def batch():
+                return batch_cuda.mlsp_fill_batch(
+                    subst, y.view(1, -1), x.view(1, -1), GAPO, GAPE[spec],
+                    one, one, tile_h=th, tile_w=tw, headers=True,
+                    **kind_gap(spec))
+
+            pair(), batch()  # warm-up
+            ab = {"pair": [], "batch": []}
+            for name in ("pair", "batch", "batch", "pair"):
+                ab[name].append(cuda_ms(torch, pair if name == "pair"
+                                        else batch, 3))
+            before = mlsp_cuda.LAUNCHES
+            got = pair()
+            launches = mlsp_cuda.LAUNCHES - before
+            warp_got = batch()
             want = {}
             plain_ms = cuda_ms(
                 torch, lambda: want.update(mlsp_fill_plain(subst, y, x, **kw)),
                 1)
             err = max_abs_diff(torch, got, want)
-            if err:
-                fail(f"kernel != plain at {n}x{n} {spec}: max |diff| {err}")
+            err_w = max_abs_diff(torch, {k: warp_got[k][0] for k in got},
+                                 want)
+            if err or err_w:
+                fail(f"kernel != plain at {n}x{n} {spec}: max |diff| {err} "
+                     f"(pair entry), {err_w} (batch entry)")
             max_err = max(max_err, err)
+            ms = sum(ab["pair"]) / 2
             rows_p, cols_p = y.numel() - 1, x.numel() - 1
             b_ms, b_by = bound_ms(spec, rows_p, cols_p, th, tw, S)
             per_spec[spec] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                gcups=n * n / (ms * 1e-3) / 1e9,
-                launches_per_fill=rows_p // th + cols_p // tw - 1,
+                gcups=n * n / (ms * 1e-3) / 1e9, launches_per_fill=launches,
+                pair_ms=ab["pair"], batch_ms=ab["batch"],
             )
             log(f"phase full-size {spec} {n}x{n} tile {th}x{tw}: kernel "
                 f"{ms:.3f} ms ({per_spec[spec]['gcups']:.3f} GCUPS, "
-                f"{per_spec[spec]['launches_per_fill']} launches), plain "
-                f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"bit-exact")
-            del got, want
+                f"{launches} launches), plain {plain_ms:.1f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), bit-exact; A/B ms (pair entry "
+                f"{strip_cuda.PAIR_WARPS} warp(s) a block, batch entry 4, "
+                f"batch, pair): {ab['pair'][0]:.3f}, {ab['batch'][0]:.3f}, "
+                f"{ab['batch'][1]:.3f}, {ab['pair'][1]:.3f}")
+            del got, warp_got, want
         times["full_kernels"] = time.perf_counter() - t0
 
-        # ... and the dense fill against its plain version, every spec.
+        # ... and K3 against its plain version, every spec.
         t0 = time.perf_counter()
         adj = n + 1
         for i, spec in enumerate(SPECS):
@@ -2144,7 +2217,9 @@ def main() -> int:
 
             fill()  # warm-up
             ms = cuda_ms(torch, fill, 3)
+            before = dense_cuda.LAUNCHES
             got = fill()
+            launches = dense_cuda.LAUNCHES - before
             plain = []
             plain_ms = cuda_ms(torch, lambda: plain.append(rowscan_dense(
                 subst, y[:adj], x[:adj], GAPO, GAPE[spec],
@@ -2158,17 +2233,16 @@ def main() -> int:
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err,
                 gcups=n * n / (ms * 1e-3) / 1e9,
-                launches_per_fill=(-(-n // dense_cuda.TILE_H)
-                                   + -(-n // dense_cuda.TILE_W) - 1),
+                launches_per_fill=launches,
             )
-            log(f"phase full-size dense_fill {spec} {n}x{n} tile "
-                f"{dense_cuda.TILE_H}x{dense_cuda.TILE_W}: kernel "
+            log(f"phase full-size dense_fill {spec} {n}x{n} strips of "
+                f"{32 * dense_cuda.LANE_ROWS} rows, {dense_cuda.WARPS} "
+                f"warp(s) a block: kernel "
                 f"{ms:.3f} ms ({dense_spec[spec]['gcups']:.3f} GCUPS, "
-                f"{dense_spec[spec]['launches_per_fill']} launches), plain "
-                f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"bit-exact")
+                f"{launches} launches), plain {plain_ms:.1f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), bit-exact")
             del got, plain
-        sweep_dense_tiles(torch, subst, subst_np, n)
+        sweep_dense(torch, subst, subst_np, n, S)
         times["full_dense"] = time.perf_counter() - t0
 
         # ... and the v1 wavefront flows (K2, K4), held against cpu1_st_row.
@@ -2238,7 +2312,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "mlsp_fill",
         "route": "cuda",
-        "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_fill.cu",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/strip_fill.cu",
         "replaces": "gpuseqalign_tpu/ops/pallas_wavefront2.py:1152",
         "launches": main_launches,
         "max_abs_err": max_err,
@@ -2274,7 +2348,7 @@ def main() -> int:
     }, {
         "name": "dense_fill",
         "route": "cuda",
-        "source": "gpuseqalign_tpu_torch/ops/csrc/mlsp_fill.cu",
+        "source": "gpuseqalign_tpu_torch/ops/csrc/strip_fill.cu",
         "replaces": "gpuseqalign_tpu/ops/pallas_wavefront2.py:1421",
         "launches": dense_launches,
         "max_abs_err": max(v["max_abs_err"] for v in dense_spec.values()),

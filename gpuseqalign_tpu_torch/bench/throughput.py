@@ -118,7 +118,7 @@ def _run_streaming(args, spec, subst, letter_map, dev) -> int:
     if dev.type == "cuda":
         from ..ops import build
 
-        build.build_all(["mlsp_fill", "mlsp_tiny"])
+        build.build_all(["strip_fill", "mlsp_tiny"])
     first = None
     chunk: Pairs = []
     n_pairs = cells = n_bad = n_verified = 0

@@ -27,8 +27,10 @@ the int32 instructions the card issues, a step of each elementwise body
   int16            int32 against packed int16x2 add+max, and DPX
   roofline         roofline_body for the four specs: the fastest faithful
                    body (base or sw) over a sweep of K and blocks a SM
-  gridcost         K1 at 23728^2 against the same launches with the step
-                   body skipped (``--gap``): its machinery share
+  gridcost         K1 (row strips) at 23728^2 against the same launch
+                   with the DP cells skipped, and one strip alone
+                   (``--gap``): its machinery share, the ns of a strip
+                   step and the columns a strip trails the one above
   sass             what the compiler made of each probe kernel: registers,
                    spills, resident blocks a SM, and the opcodes of its SASS
 
@@ -89,7 +91,7 @@ INT16_LANES = {"i32": 1, "i16x2": 2, "i16x2_dpx": 2}
 GAPO, GAPE = -11, -2
 SEED = 20261017
 LETTERS = 25  # blosum62's alphabet
-# K1's default tile, which probe_gridcost times (one row group: th <= 256)
+# K1's default tile, which probe_gridcost times (strips of 128 rows)
 TILE_H, TILE_W = 128, 512
 SASS_OPCODES = ("IMNMX", "VIMNMX", "VIADDMNMX", "VIADD", "IADD3", "IMAD",
                 "SEL", "ISETP", "SHF", "LEA", "SHFL", "BAR", "LDS", "STS",
@@ -378,9 +380,13 @@ def probe_int16(device=None) -> dict:
 def probe_gridcost(n: int = 23728, gap: str = "linear",
                    device=None) -> dict:
     """Split K1's (``mlsp_fill``) time at n x n, tile 128 x 512, into the
-    step body and the machinery around it (launches, loads, output
-    stores, the SW reduction), by timing the same launches with the step
-    body skipped. K1 has one tile a block and no chain count."""
+    DP cells and the machinery around them (the shuffles, the hand-over
+    between strips, the header stores, the SW reduction), by timing the
+    same launch with the cells skipped; and time one strip of the same
+    columns alone, whose steps run back to back: its ns a step (a strip
+    column) with and without the cells, and from the whole fill the
+    columns each strip trails the one above (the pipeline's lag)."""
+    from ..ops import strip_cuda
     from ..ops.mlsp_cuda import mlsp_fill
 
     dev = resolve_device(device)
@@ -388,6 +394,7 @@ def probe_gridcost(n: int = 23728, gap: str = "linear",
         raise ValueError("probe_gridcost times the kernel's machinery on "
                          "the card; the plain fill has none")
     th, tw = TILE_H, TILE_W
+    sh = strip_cuda.strip_rows(th)
     rng = np.random.default_rng(7)
     subst = torch.from_numpy(
         rng.integers(-4, 10, (LETTERS, LETTERS)).astype(np.int32)).to(dev)
@@ -397,22 +404,29 @@ def probe_gridcost(n: int = 23728, gap: str = "linear",
     y[1:1 + n] = rng.integers(0, LETTERS, n)
     x[1:1 + n] = rng.integers(0, LETTERS, n)
     y, x = torch.from_numpy(y).to(dev), torch.from_numpy(x).to(dev)
+    cols = x.numel() - 1
+    ns = strip_cuda.n_strips(y.numel() - 1, sh)
     kw = dict(gapo=GAPO, gape=GAPE if gap == "affine" else 0, adjr=n + 1,
-              adjc=n + 1, tile_h=th, tile_w=tw, kind="nw", gap=gap)
-    res = {"n": n, "gap": gap, "tile": [th, tw],
-           "launches": trows + tcols - 1}
-    for name, off in (("full", False), ("bodyoff", True)):
-        res[name] = {"ms": 1e3 * elapsed_s(
-            lambda off=off: mlsp_fill(subst, y, x, **kw, _bodyoff=off),
-            dev, 3, head_start_s=0.05)}
-    body_ms = res["full"]["ms"] - res["bodyoff"]["ms"]
-    steps = th + tw - 1
+              adjc=n + 1, tile_w=tw, kind="nw", gap=gap)
+    res = {"n": n, "gap": gap, "tile": [th, tw], "strips": ns,
+           "launches": 1}
+    for name, yy, tile_h in (("", y, th), ("one_strip_", y[:1 + sh], sh)):
+        for part, off in (("full", False), ("bodyoff", True)):
+            res[name + part] = {"ms": 1e3 * elapsed_s(
+                lambda off=off, yy=yy, tile_h=tile_h: mlsp_fill(
+                    subst, yy, x, **kw, tile_h=tile_h, _bodyoff=off),
+                dev, 3, head_start_s=0.05)}
+    steps = cols + 32  # a strip's steps: its columns and 31 of lane skew
+    step_ns = res["one_strip_full"]["ms"] * 1e6 / steps
     res.update(
-        body_ms=body_ms,
+        body_ms=res["full"]["ms"] - res["bodyoff"]["ms"],
         machinery_frac=res["bodyoff"]["ms"] / res["full"]["ms"],
-        steps_per_tile=steps,
-        ns_per_serial_step=body_ms * 1e6 / (res["launches"] * steps),
-        ns_per_tile_step=body_ms * 1e6 / (trows * tcols * steps),
+        steps_per_strip=steps,
+        ns_per_serial_step=step_ns,
+        ns_per_serial_step_bodyoff=(res["one_strip_bodyoff"]["ms"] * 1e6
+                                    / steps),
+        lag_steps=((res["full"]["ms"] - res["one_strip_full"]["ms"]) * 1e6
+                   / step_ns / max(1, ns - 1)),
     )
     return res
 

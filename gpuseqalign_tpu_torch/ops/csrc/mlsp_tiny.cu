@@ -14,7 +14,7 @@
 //     (groups of blockDim rows) and the block sweeps each group's
 //     anti-diagonals. H (and F) pass down one row per step with
 //     __shfl_up_sync inside a warp and through a double-buffered
-//     shared-memory slot across warps, as in mlsp_fill.cu. The bucket's
+//     shared-memory slot across warps. The bucket's
 //     padded shape sets only the strides and the carried row's size.
 //   * No header is loaded or stored: the top row of the first group and
 //     the left column are the analytic edge (H[i,0], H[0,j]; F and E

@@ -25,9 +25,9 @@
 //     rotation by one warp through a double-buffered shared-memory slot
 //     and __syncthreads in place of the sublane roll, K1's cross-warp
 //     hand-off), then stores the max over its chains. The two skeleton
-//     bodies are K1's step (mlsp_fill.cu, the step loop of
-//     mlsp_tile_kernel) with the substitution score replaced by the input
-//     and no header I/O: thread t is DP row t + 1 of a strip of blockDim
+//     bodies are the step of K1's first kernel (a block a tile, a
+//     thread a row, one block barrier a step) with the substitution
+//     score replaced by the input and no header I/O: thread t is DP row t + 1 of a strip of blockDim
 //     rows and `iters` columns with the analytic NW edge, each chain an
 //     independent strip (chain k scores a + k), H (and F) passed down by
 //     __shfl_up_sync and the cross-warp slot.
@@ -143,7 +143,7 @@ __device__ __forceinline__ int edge(int n, int gapo, int gape) {
 }
 
 // One strip of blockDim rows x iters columns for each of K chains, the
-// step of mlsp_fill.cu's mlsp_tile_kernel (one row group, one tile).
+// step of K1's first kernel (one row group of one tile).
 template <bool AFFINE, bool SW, bool LOOKUP, bool HEADER, bool ONEWARP,
           bool OUTMAX, int K>
 __global__ void __launch_bounds__(kMaxThreads)

@@ -21,7 +21,7 @@
 //     A row's up neighbour of the previous step comes from the same
 //     thread's registers, or from the thread above by __shfl_up_sync
 //     inside a warp and through a double-buffered shared-memory slot
-//     across warps (K1's hand-off, ops/csrc/mlsp_fill.cu); one block
+//     across warps (the hand-off of K1's first kernel); one block
 //     barrier a step. The diagonal is the up value of the step before.
 //   * The profile of step c + D is loaded at step c into a ring of D
 //     registers, so its latency is off the serial chain (D steps ahead);

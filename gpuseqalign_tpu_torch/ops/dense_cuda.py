@@ -1,12 +1,13 @@
-"""Wrapper of the CUDA dense fill (the dense entry of
-``ops/csrc/mlsp_fill.cu``).
+"""Wrapper of the CUDA dense fill of one pair (K3, ``strip_fill_dense`` of
+``ops/csrc/strip_fill.cu``, host side ``ops/strip_cuda.py``).
 
 ``dense_fill`` returns the H window (adjr, adjc) of one pair, header row
-and column included. On a CUDA tensor it launches the kernel (one launch
-per tile anti-diagonal, on the current stream, no host sync between
-launches) or raises; on a CPU tensor it runs the plain version,
-``dense_plain.rowscan_dense``. A pair with an empty side (adjr or adjc 1)
-has H = its header alone and launches nothing.
+and column included. On a CUDA tensor it launches the kernel once on the
+current stream (row strips over the live cells, each strip's top row read
+back from H, the cells stored row-wise through shared memory) or raises;
+on a CPU tensor it runs the plain version, ``dense_plain.rowscan_dense``.
+A pair with an empty side (adjr or adjc 1) has H = its header alone and
+launches nothing.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main path
 went through the kernel.
@@ -14,18 +15,20 @@ went through the kernel.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from . import strip_cuda
 from .dense_plain import rowscan_dense
-from .mlsp_cuda import alloc_headers, load_lib
 from .mlsp_plain import edge_col, edge_row
 
 LAUNCHES = 0
 
-# The tile of the sweep, from chip_smoke.py's tile sweep at 23728^2 on an
-# H100 (PERF.md): square 128-cell tiles keep up to 186 tiles in flight
-# per launch where 128x512 keeps 47. The TPU tuning keys never reach it.
-TILE_H, TILE_W = 128, 128
+# The schedule, from chip_smoke.py's sweep over strip heights and warps a
+# block at 23728^2 on an H100 (PERF.md): strips of 32*LANE_ROWS rows,
+# WARPS warps a block.
+LANE_ROWS, WARPS = 4, 1
 
 
 def _check(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
@@ -50,9 +53,12 @@ def _check(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
 
 def dense_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                gapo: int, gape: int, adjr: int, adjc: int, *, kind: str,
-               gap: str) -> torch.Tensor:
+               gap: str, _lane_rows: Optional[int] = None,
+               _warps: Optional[int] = None) -> torch.Tensor:
     """H (adjr, adjc) int32 of the header-prefixed ``y[:adjr]`` against
-    ``x[:adjc]`` (both may be padded past their true lengths)."""
+    ``x[:adjc]`` (both may be padded past their true lengths).
+    ``_lane_rows`` and ``_warps`` override the schedule (hooks for the
+    checks and the sweep of ``chip_smoke.py``)."""
     global LAUNCHES
     _check(subst, y, x, adjr, adjc)
     if y.device.type == "cpu":
@@ -69,37 +75,24 @@ def dense_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     if adjr < 2 or adjc < 2:
         return H
 
-    lib = load_lib()
-    trows, tcols = -(-(adjr - 1) // TILE_H), -(-(adjc - 1) // TILE_W)
-    rows_p, cols_p = trows * TILE_H, tcols * TILE_W
-    yp = torch.zeros(1 + rows_p, **i32)
-    xp = torch.zeros(1 + cols_p, **i32)
-    yp[:adjr] = y[:adjr]
-    xp[:adjc] = x[:adjc]
-    hdr = alloc_headers((), rows_p, cols_p, TILE_H, TILE_W, gapo, gape, kind,
-                        gap, dev)
+    lib = strip_cuda.load_lib()
     is_sw, affine = kind == "sw", gap == "affine"
-    n_scratch = lib.mlsp_fill_scratch_words(
-        subst.shape[0], TILE_H, TILE_W, tcols, int(is_sw), int(affine))
-    scratch = torch.empty(n_scratch, **i32) if n_scratch else None
+    S = subst.shape[0]
+    k = _lane_rows or LANE_ROWS
+    warps = _warps or WARPS
+    ns = strip_cuda.n_strips(adjr - 1, 32 * k)
+    prog, carry = strip_cuda.alloc_dense_scratch(ns, adjc - 1, affine, dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for d in range(trows + tcols - 1):
-            rc = lib.mlsp_fill_dense_diag(
-                int(is_sw), int(affine), ptr(subst), subst.shape[0],
-                ptr(yp), ptr(xp), gapo, gape, adjr, adjc,
-                TILE_H, TILE_W, trows, tcols, d,
-                ptr(hdr["hrows"]), ptr(hdr["hcols"]), ptr(hdr.get("frows")),
-                ptr(hdr.get("ecols")), ptr(H), ptr(scratch), stream,
-            )
-            if rc != 0:
-                raise RuntimeError(
-                    f"dense_fill launch failed on diagonal {d}: "
-                    f"cudaError {rc}"
-                )
-            LAUNCHES += 1
+        rc = lib.strip_fill_dense(
+            int(is_sw), int(affine), k, warps, ptr(subst), S,
+            ptr(y), ptr(x), gapo, gape, adjr, adjc, ptr(H), ptr(carry),
+            ptr(prog), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"dense_fill launch failed: cudaError {rc}")
+        LAUNCHES += 1
     return H

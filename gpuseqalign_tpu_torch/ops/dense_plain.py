@@ -14,7 +14,8 @@ Both take the header-prefixed ``y`` (adjr,) and ``x`` (adjc,) and return
 H (adjr, adjc) with its header row and column; ``lax.scan`` becomes a
 Python loop, so each runs on whatever device its tensors lie on.
 ``rowscan_dense`` is also the plain version of the dense-fill kernel
-(``ops/csrc/mlsp_fill.cu``, wrapper ``ops/dense_cuda.py``).
+(``strip_fill_dense`` of ``ops/csrc/strip_fill.cu``, wrapper
+``ops/dense_cuda.py``).
 """
 
 from __future__ import annotations

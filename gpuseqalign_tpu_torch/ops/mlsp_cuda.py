@@ -1,14 +1,13 @@
-"""Wrapper of the CUDA sparse (mlsp) tile-header fill.
+"""Wrapper of the CUDA sparse (mlsp) tile-header fill of one pair (K1).
 
 ``mlsp_fill`` takes the inputs of ``mlsp_plain.mlsp_fill_plain`` and
-returns the same outputs. On a CUDA tensor it launches the kernel of
-``ops/csrc/mlsp_fill.cu`` (one launch per tile anti-diagonal, on the
-current stream, no host sync between launches) or raises; it uses the
-plain version only for tensors that lie on the CPU. ``load_lib`` and
-``alloc_headers`` serve the dense entry of the same library too
-(``dense_cuda.dense_fill``); ``alloc_headers`` and ``tile_best`` serve the
-strip kernel's wrappers (``batch_cuda.mlsp_fill_batch``,
-``banded_cuda.banded_pass``).
+returns the same outputs. On a CUDA tensor it launches ``strip_fill_pair``
+of ``ops/csrc/strip_fill.cu`` (host side ``ops/strip_cuda.py``) once, on
+the current stream: persistent row strips, a warp each, every strip of
+the pair in flight at once. A launch error raises; it uses the plain
+version only for tensors that lie on the CPU. ``alloc_headers`` and
+``tile_best`` also serve the batched fill and the banded pass
+(``batch_cuda.mlsp_fill_batch``, ``banded_cuda.banded_pass``).
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main path
 went through the kernel.
@@ -16,49 +15,15 @@ went through the kernel.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import torch
 
 from ..core.types import NEG_INF_I32
+from . import strip_cuda
 from .mlsp_plain import edge_col, edge_row, mlsp_fill_plain
 
 LAUNCHES = 0
-
-_lib = None
-
-
-def load_lib() -> ctypes.CDLL:
-    """The library of ``ops/csrc/mlsp_fill.cu``, built on first use."""
-    global _lib
-    if _lib is None:
-        from .build import load
-
-        lib = load("mlsp_fill")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mlsp_fill_scratch_words.argtypes = [i, i, i, i, i, i]
-        lib.mlsp_fill_scratch_words.restype = ctypes.c_longlong
-        lib.mlsp_fill_diag.argtypes = [
-            i, i, p, i, p, p,          # sw, affine, subst, S, y, x
-            i, i, i, i,                # gapo, gape, adjr, adjc
-            i, i, i, i, i,             # th, tw, trows, tcols, d
-            p, p, p, p, p, p,          # hrows, hcols, frows, ecols, tbest,
-            p,                         # scratch, stream
-        ]
-        lib.mlsp_fill_diag.restype = ctypes.c_int
-        lib.mlsp_fill_dense_diag.argtypes = [
-            i, i, p, i, p, p,          # sw, affine, subst, S, y, x
-            i, i, i, i,                # gapo, gape, adjr, adjc
-            i, i, i, i, i,             # th, tw, trows, tcols, d
-            p, p, p, p, p,             # hrows, hcols, frows, ecols, H
-            p, p,                      # scratch, stream
-        ]
-        lib.mlsp_fill_dense_diag.restype = ctypes.c_int
-        lib.mlsp_fill_bodyoff_diag.argtypes = lib.mlsp_fill_diag.argtypes
-        lib.mlsp_fill_bodyoff_diag.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def alloc_headers(lead: tuple, rows_p: int, cols_p: int, tile_h: int,
@@ -133,7 +98,7 @@ def mlsp_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     """Sparse fill for any spec; the outputs of ``mlsp_fill_plain``.
 
     ``_bodyoff`` is for ``bench/vpu_probe.py::probe_gridcost`` alone: the
-    same launches with the DP step skipped (CUDA only), whose outputs are
+    same launch with the DP cells skipped (CUDA only), whose outputs are
     not an alignment's."""
     global LAUNCHES
     _check(subst, y, x, tile_h, tile_w)
@@ -144,48 +109,37 @@ def mlsp_fill(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device: {y.device}")
 
-    lib = load_lib()
+    lib = strip_cuda.load_lib()
     dev = y.device
     is_sw = kind == "sw"
     affine = gap == "affine"
     rows_p, cols_p = y.numel() - 1, x.numel() - 1
     trows, tcols = rows_p // tile_h, cols_p // tile_w
-    width = cols_p + 1
-    i32 = dict(dtype=torch.int32, device=dev)
-
     out = alloc_headers((), rows_p, cols_p, tile_h, tile_w, gapo, gape,
                         kind, gap, dev)
-    hrows, hcols = out["hrows"], out["hcols"]
-    frows, ecols = out.get("frows"), out.get("ecols")
-    tbest = scratch = None
-    if is_sw:
-        tbest = torch.empty((trows * tcols, 3), **i32)
-    n_scratch = lib.mlsp_fill_scratch_words(
-        subst.shape[0], tile_h, tile_w, tcols, int(is_sw), int(affine))
-    if n_scratch:
-        scratch = torch.empty(n_scratch, **i32)
+    sched = strip_cuda.schedule(tile_h, tile_w)
+    ns = strip_cuda.n_strips(rows_p, sched.rows)
+    prog, carry = strip_cuda.alloc_scratch(1, ns, cols_p,
+                                           not sched.carry_in_headers,
+                                           affine, dev)
+    tbest = (torch.zeros((ns, 3), dtype=torch.int32, device=dev)
+             if is_sw else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        entry = lib.mlsp_fill_bodyoff_diag if _bodyoff else lib.mlsp_fill_diag
-        for d in range(trows + tcols - 1):
-            rc = entry(
-                int(is_sw), int(affine), ptr(subst), subst.shape[0],
-                ptr(y), ptr(x), gapo, gape, adjr, adjc,
-                tile_h, tile_w, trows, tcols, d,
-                ptr(hrows), ptr(hcols), ptr(frows), ptr(ecols), ptr(tbest),
-                ptr(scratch), stream,
-            )
-            if rc != 0:
-                raise RuntimeError(
-                    f"mlsp_fill launch failed on diagonal {d}: "
-                    f"cudaError {rc}"
-                )
-            LAUNCHES += 1
-
+        rc = lib.strip_fill_pair(
+            int(is_sw), int(affine), sched.lane_rows, strip_cuda.PAIR_WARPS,
+            int(_bodyoff), ptr(subst), subst.shape[0], ptr(y), ptr(x),
+            gapo, gape, adjr, adjc, tile_h, tile_w, trows, tcols,
+            ptr(out["hrows"]), ptr(out["hcols"]), ptr(out.get("frows")),
+            ptr(out.get("ecols")), ptr(tbest), ptr(carry), ptr(prog),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"mlsp_fill launch failed: cudaError {rc}")
+        LAUNCHES += 1
     if is_sw:
-        out["best"] = tile_best(tbest.view(1, -1, 3), width)[0]
+        out["best"] = tile_best(tbest.view(1, -1, 3), cols_p + 1)[0]
     return out

@@ -6,8 +6,8 @@ specs in one function: each DP row is one vector step, and the in-row left
 dependency is solved with a max-plus prefix scan,
     H[j] = max(cand[j], H[j-1] + g) == cummax(cand[k] - k*g)[j] + j*g
 (``lax.cummax`` -> ``torch.cummax``; ``lax.scan`` -> a Python loop over
-rows). The CUDA kernel (``ops/csrc/mlsp_fill.cu``) computes the same
-outputs cell by cell; this function is its reference on the CPU tests and
+rows). The CUDA kernel (``strip_fill_pair`` of ``ops/csrc/strip_fill.cu``)
+computes the same outputs cell by cell; this function is its reference on the CPU tests and
 on the card, and it runs on whatever device its tensors lie on. The row
 body, ``row_step``, is shared with the batch and dense plain fills
 (``ops/batch_plain.py``, ``ops/dense_plain.py``).

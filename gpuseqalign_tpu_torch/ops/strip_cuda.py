@@ -1,13 +1,16 @@
 """Host side of the persistent row-strip fill (``ops/csrc/strip_fill.cu``),
-the kernel of the banded pass (K7, ``banded_cuda.banded_pass``) and of the
-batched fill (K5, ``batch_cuda.mlsp_fill_batch``).
+the kernel of the single-pair sparse fill (K1, ``mlsp_cuda.mlsp_fill``),
+the dense fill (K3, ``dense_cuda.dense_fill``), the batched fill (K5,
+``batch_cuda.mlsp_fill_batch``) and the banded pass (K7,
+``banded_cuda.banded_pass``).
 
 The kernel cuts each matrix (a band's pass, or a pair) into strips of
 ``32*K`` rows, one warp a strip, and hands strips out by an atomic ticket.
 What the wrappers decide on the host lives here as plain functions, so
 the CPU tests reach it: the strip height for a tile height, whether the
 carry between strips can live in the tile headers, the sizes of the
-counter and carry scratch, and the order in which tickets map to strips.
+counter and carry scratch, a block's shared memory and warps, and the
+order in which tickets map to strips.
 """
 
 from __future__ import annotations
@@ -21,6 +24,16 @@ import torch
 # Rows a lane can hold, and so the strip heights 32*K the kernel is built for.
 LANE_ROWS = (1, 2, 4, 8)
 STRIP_HEIGHTS = tuple(32 * k for k in LANE_ROWS)
+# Warps a block of the single-pair sparse fill (K1): at 23728^2 on an H100
+# the pair entry at 1 ran 1-4% below the batch entry at 4 (chip_smoke.py's
+# A/B, PERF.md). The kernel takes 1..MAX_WARPS.
+PAIR_WARPS = 1
+MAX_WARPS = 4
+# Shared memory one block may opt in to on an H100 (227 KB).
+SMEM_MAX = 232448
+# The kernel's shared-memory layout (strip_fill.cu): words of a warp's
+# letter ring, and columns of a dense warp's staging buffer.
+_RING, _STAGE_COLS = 128, 64
 
 _lib = None
 
@@ -77,6 +90,33 @@ def ticket_order(nmat: int, ns: int) -> List[Tuple[int, int]]:
     return [(t % nmat, t // nmat) for t in range(nmat * ns)]
 
 
+def smem_bytes(lane_rows: int, S: int, warps: int, dense: bool) -> int:
+    """Dynamic shared memory of one block of ``warps`` warps (the kernel's
+    ``smem_words``): MAX_WARPS letter rings, the substitution matrix and,
+    for the dense fill, each warp's staging buffer of 32*K rows by two
+    32-column chunks."""
+    words = MAX_WARPS * _RING + S * S
+    if dense:
+        words += warps * 32 * lane_rows * _STAGE_COLS
+    return 4 * words
+
+
+def max_warps(lane_rows: int, S: int, dense: bool) -> int:
+    """The most warps a block (at most MAX_WARPS) whose shared memory
+    fits in SMEM_MAX; 0 if not even one warp's does."""
+    fits = [w for w in range(1, MAX_WARPS + 1)
+            if smem_bytes(lane_rows, S, w, dense) <= SMEM_MAX]
+    return max(fits, default=0)
+
+
+def dense_scratch_words(ns: int, cols: int, affine: bool) -> Tuple[int, int]:
+    """(counter words, carry words) of one dense fill of ``ns`` strips and
+    ``cols`` live columns: the ticket and a counter a strip; H of each
+    strip's bottom row is a row of H itself, so the carry holds only F
+    (affine gaps), ``cols + 1`` wide a strip."""
+    return 1 + ns, (ns * (cols + 1) if affine else 0)
+
+
 def scratch_words(nmat: int, ns: int, cols: int, carry: bool,
                   affine: bool) -> Tuple[int, int]:
     """(counter words, carry words) of one launch over ``nmat`` matrices
@@ -89,17 +129,28 @@ def scratch_words(nmat: int, ns: int, cols: int, carry: bool,
     return 1 + nmat * ns, (planes * nmat * ns * (cols + 1) if carry else 0)
 
 
+def _alloc(n_prog: int, n_carry: int, dev: torch.device
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    prog = torch.zeros(n_prog, dtype=torch.int32, device=dev)
+    rows = (torch.empty(n_carry, dtype=torch.int32, device=dev)
+            if n_carry else None)
+    return prog, rows
+
+
 def alloc_scratch(nmat: int, ns: int, cols: int, carry: bool,
                   affine: bool, dev: torch.device
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A launch's own scratch: the counters zeroed (every call), and the
     carry rows where needed (never read before their counter passes
     them)."""
-    n_prog, n_carry = scratch_words(nmat, ns, cols, carry, affine)
-    prog = torch.zeros(n_prog, dtype=torch.int32, device=dev)
-    rows = (torch.empty(n_carry, dtype=torch.int32, device=dev)
-            if n_carry else None)
-    return prog, rows
+    return _alloc(*scratch_words(nmat, ns, cols, carry, affine), dev)
+
+
+def alloc_dense_scratch(ns: int, cols: int, affine: bool, dev: torch.device
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A dense fill's own scratch: the counters zeroed, and F's carry rows
+    for affine gaps."""
+    return _alloc(*dense_scratch_words(ns, cols, affine), dev)
 
 
 def load_lib() -> ctypes.CDLL:
@@ -117,7 +168,6 @@ def load_lib() -> ctypes.CDLL:
             p, p, p, p, p,             # hrows, hcols, frows, ecols, tbest
             p, p, p,                   # carry, prog, stream
         ]
-        lib.strip_fill_banded.restype = ctypes.c_int
         lib.strip_fill_batch.argtypes = [
             i, i, i, i, p, i,          # sw, affine, K, headers, subst, S
             p, p, i, i, p, p,          # ys, xs, gapo, gape, adjrs, adjcs
@@ -125,7 +175,19 @@ def load_lib() -> ctypes.CDLL:
             p, p, p, p, p, p,          # hrows, hcols, frows, ecols, tbest, cost
             p, p, p,                   # carry, prog, stream
         ]
-        lib.strip_fill_batch.restype = ctypes.c_int
+        lib.strip_fill_pair.argtypes = [
+            i, i, i, i, i,             # sw, affine, K, warps, bodyoff
+            p, i, p, p, i, i, i, i,    # subst, S, y, x, gapo, gape, adjr, adjc
+            i, i, i, i,                # th, tw, trows, tcols
+            p, p, p, p, p,             # hrows, hcols, frows, ecols, tbest
+            p, p, p,                   # carry, prog, stream
+        ]
+        lib.strip_fill_dense.argtypes = [
+            i, i, i, i,                # sw, affine, K, warps
+            p, i, p, p, i, i, i, i,    # subst, S, y, x, gapo, gape, adjr, adjc
+            p, p, p, p,                # H, carry, prog, stream
+        ]
+        for entry in ("banded", "batch", "pair", "dense"):
+            getattr(lib, f"strip_fill_{entry}").restype = ctypes.c_int
         _lib = lib
     return _lib
-
