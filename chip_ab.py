@@ -10,10 +10,12 @@ its kernels are built from its own sources and its own ``chip_smoke.py``
 gives the inputs. Prints one JSON line: LABEL and the CUDA-event ms (mean
 of 3 after a warm-up, no plain version, no check) of K1 (``mlsp_fill``,
 128 x 512) and K3 (``dense_fill``) at 23728^2, K7 (``banded_pass``, the
-whole band of a 23728^2 pair at D = 1) for every spec, and K5
+whole band of a 23728^2 pair at D = 1) for every spec, K5
 (``mlsp_fill_batch``, the engine's cost-only call summed over the
-pair_generated_1 nw_ag buckets). Run the trees in turns (A, B, B, A):
-two calls may land on two cards.
+pair_generated_1 nw_ag buckets), and the v1 fills K2
+(``mlsp_nw_lg_fill``, R 128, TW 512) and K4 (``dense_nw_lg_fill``, R
+1024) at 23728^2, nw_lg, at the tree's default schedule. Run the trees in
+turns (A, B, B, A): two calls may land on two cards.
 """
 
 import json
@@ -39,7 +41,7 @@ def main() -> int:
     from gpuseqalign_tpu_torch.core.types import AlgParams
     from gpuseqalign_tpu_torch.io.subst import parse_subst_file
     from gpuseqalign_tpu_torch.ops import batch_cuda, build, dense_cuda
-    from gpuseqalign_tpu_torch.ops import mlsp_cuda
+    from gpuseqalign_tpu_torch.ops import mlsp_cuda, wavefront_cuda
     from gpuseqalign_tpu_torch.ops.banded_cuda import banded_pass
     from gpuseqalign_tpu_torch.parallel.batch import (
         TILE_FILL_MIN_ROWS,
@@ -87,6 +89,23 @@ def main() -> int:
         dense_cuda.dense_fill(subst, y, x, cs.GAPO, cs.GAPE[spec], **kd)
         res[f"K3_{spec}"] = cs.cuda_ms(torch, lambda: dense_cuda.dense_fill(
             subst, y, x, cs.GAPO, cs.GAPE[spec], **kd), 3)
+
+    seq = cs.release_seq()
+    for key, R, TW, W in (("K2", 128, 512, 512), ("K4", 1024, None, 256)):
+        pskew, cols_p = cs.wavefront_pskew(torch, subst, seq, seq, R,
+                                           TW or 128, W)
+        if TW:
+            def fill():
+                wavefront_cuda.mlsp_nw_lg_fill(pskew, cs.GAPO, cols_p=cols_p,
+                                               W=W, TW=TW)
+        else:
+            def fill():
+                wavefront_cuda.dense_nw_lg_fill(pskew, cs.GAPO, cols_p=cols_p,
+                                                W=W)
+        fill()  # warm-up
+        res[f"{key}_nw_lg"] = cs.cuda_ms(torch, fill, 3)
+        del pskew
+        torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
     return 0
 

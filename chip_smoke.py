@@ -31,12 +31,14 @@ Phases, each of which makes the script exit non-zero if it fails:
                 chain 3 times; chains of D > 1 bands also through
                 giant2_fill on D streams of the one card) and the v1
                 wavefront fills mlsp_nw_lg_fill (K2) and dense_nw_lg_fill
-                (K4, nw_lg only), every output element, on profiles of
-                slices of the release sequence: R 128/256/1024/2048, TW
-                from R to 2R (and 512), W 128/256/512, gapo -11/-1/0, a
-                pair shorter than a row block, one tile column, one row,
-                1x1; then banded_pass timed against its plain version on
-                the whole band of a 23728 x 23728 pair (D = 1), every spec
+                (K4, nw_lg only; the row-strip kernel of wavefront.cu),
+                every output element, on profiles of slices of the release
+                sequence: R 128/256/1024/2048/4096, TW from R to 2R (and
+                512), W 128/256/512, gapo -11/-1/0, a pair shorter than a
+                row block, one tile column, one row, 1x1, one call of 200
+                strips; each case 3 times; then banded_pass timed against
+                its plain version on the whole band of a 23728 x 23728
+                pair (D = 1), every spec
   3. cli        the single-pair paths: bench.cli.main on the card for
                 nw_lg, nw_ag, sw_lg, sw_ag with cpu1_st_row as the
                 reference, the sparse names and the dense ones (tpu1, tpu2,
@@ -56,10 +58,12 @@ Phases, each of which makes the script exit non-zero if it fails:
                 pair through the v1 flows (wavefront.align_mlsp at 128x512,
                 wavefront.align_dense at R 1024) in the registry's sparse
                 and dense bundles, cost, score hash and trace hash equal
-                to cpu1_st_row's, with laps and peak device memory, and
-                K2 and K4 timed against their plain versions at that size
+                to cpu1_st_row's, one launch a fill, with laps and peak
+                device memory, and K2 and K4 timed against their plain
+                versions at that size (launches a fill, bound, share of
+                bound)
   5. launches   the single-pair paths' runs went through their kernels,
-                the v1 flows through K2 and K4
+                the v1 flows through K2 and K4, one launch a fill
   6. throughput the batch path: bench.throughput.main on the card for
                 resrc/pair_generated_1.txt (all four specs, pow2 buckets,
                 oracle check of 5 pairs) and 16384 synthetic pairs of
@@ -524,6 +528,8 @@ def wavefront_cases() -> list:
         (700, 300, 256, 512, 512, -1),     # a single tile column
         (1, 2000, 128, 512, 512, 0),       # a 1-row pair
         (1, 1, 128, 128, 128, -11),        # 1 x 1
+        (5000, 4500, 4096, 4096, 512, -1),  # R 4096: 32 strips a block
+        (25600, 300, 1024, 1024, 256, -11),  # one call of 200 strips
     ]
 
 
@@ -559,8 +565,9 @@ def outputs_max_abs_diff(torch, got, want) -> int:
 def check_wavefront_kernels(torch, subst, seq) -> int:
     """K2 (mlsp_nw_lg_fill) and K4 (dense_nw_lg_fill) against their plain
     versions on the card, every element of every output bit-exact, on
-    wavefront_cases() with profiles of slices of the release sequence;
-    returns the number of cases."""
+    wavefront_cases() with profiles of slices of the release sequence,
+    each REPEATS times (the strips of a fill run concurrently, so a race
+    shows as a rare mismatch); returns the number of cases."""
     import numpy as np
 
     from gpuseqalign_tpu_torch.ops import wavefront_cuda as wc
@@ -576,19 +583,22 @@ def check_wavefront_kernels(torch, subst, seq) -> int:
         pskew, cols_p = wavefront_pskew(torch, subst, y_np.astype(np.int32),
                                         x_np.astype(np.int32), R, TW, W)
         kw = dict(cols_p=cols_p, W=W)
-        for name, got, want in (
-                ("mlsp_nw_lg_fill",
-                 wc.mlsp_nw_lg_fill(pskew, g, TW=TW, **kw),
-                 mlsp_nw_lg_plain(pskew, g, TW=TW, **kw)),
-                ("dense_nw_lg_fill",
-                 (wc.dense_nw_lg_fill(pskew, g, **kw),),
-                 (dense_nw_lg_plain(pskew, g, cols_p=cols_p),))):
-            torch.cuda.synchronize()
-            err = outputs_max_abs_diff(torch, got, want)
-            if err:
-                fail(f"{name} != plain: {rows}x{cols} R {R} TW {TW} W {W} "
-                     f"gapo {g}, max |diff| {err}")
-        del pskew, got, want
+        plain = {"mlsp_nw_lg_fill": mlsp_nw_lg_plain(pskew, g, TW=TW, **kw),
+                 "dense_nw_lg_fill": (dense_nw_lg_plain(pskew, g,
+                                                        cols_p=cols_p),)}
+        for rep in range(REPEATS):
+            for name, got in (
+                    ("mlsp_nw_lg_fill",
+                     wc.mlsp_nw_lg_fill(pskew, g, TW=TW, **kw)),
+                    ("dense_nw_lg_fill",
+                     (wc.dense_nw_lg_fill(pskew, g, **kw),))):
+                torch.cuda.synchronize()
+                err = outputs_max_abs_diff(torch, got, plain[name])
+                if err:
+                    fail(f"{name} != plain: {rows}x{cols} R {R} TW {TW} W "
+                         f"{W} gapo {g}, run {rep + 1}, max |diff| {err}")
+                del got
+        del pskew, plain
     return len(cases)
 
 
@@ -597,10 +607,11 @@ def full_wavefront(torch, subst, subst_np, seq, ref_row, S) -> dict:
     128x512, wavefront.align_dense at _choose_r's R) in the registry's
     sparse and dense bundles: align, score hash and trace must equal
     cpu1_st_row's row; each kernel's launches in its flow (counts set to 0
-    just before), the align.* laps and the peak device memory of the
-    align. Then each kernel at that size against its plain version: CUDA-
-    event ms (mean of 3 after a warm-up), the plain version's (one call),
-    max |diff| over whole arrays, bound."""
+    just before; one a fill), the align.* laps and the peak device memory
+    of the align. Then each kernel at that size against its plain version:
+    CUDA-event ms (mean of 3 after a warm-up), launches a fill, the plain
+    version's ms (one call), max |diff| over whole arrays, bound and share
+    of bound."""
     from gpuseqalign_tpu_torch.core.registry import dense, mlsp
     from gpuseqalign_tpu_torch.core.types import (
         AlgParams,
@@ -642,8 +653,9 @@ def full_wavefront(torch, subst, subst_np, seq, ref_row, S) -> dict:
         if any(int(st) for st in stats) or got != want:
             fail(f"{name} flow at {n}x{n}: status {stats}, (cost, score "
                  f"hash, trace hash) {got}, cpu1_st_row {want}")
-        if launches <= 0:
-            fail(f"{name} flow at {n}x{n}: the kernel was never launched")
+        if launches != 1:
+            fail(f"{name} flow at {n}x{n}: {launches} kernel launches, "
+                 f"expected one a fill")
         laps = {lap: res.sw_align.get_or_default(lap) for lap in (
             "align.alloc", "align.cpy_dev", "align.calc", "align.cpy_host")}
         laps["hash.calc"] = res.sw_hash.get_or_default("hash.calc")
@@ -674,7 +686,11 @@ def full_wavefront(torch, subst, subst_np, seq, ref_row, S) -> dict:
                 return (dense_nw_lg_plain(pskew, GAPO, cols_p=cols_p),)
         fill()  # warm-up
         ms = cuda_ms(torch, fill, 3)
+        before = wc.LAUNCHES[name]
         got_t = fill()
+        per_fill = wc.LAUNCHES[name] - before
+        if per_fill != 1:
+            fail(f"{name} at {n}x{n}: {per_fill} launches a fill")
         want_t = []
         plain_ms = cuda_ms(torch, lambda: want_t.extend(plain()), 1)
         err = outputs_max_abs_diff(torch, got_t, want_t)
@@ -685,13 +701,15 @@ def full_wavefront(torch, subst, subst_np, seq, ref_row, S) -> dict:
         b_ms, b_by = bound(nbytes, cell_insns("nw_lg") * rows_p * cols_p)
         out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                          bound_ms=b_ms, bound_by=b_by, launches=launches,
+                         launches_per_fill=per_fill,
                          gcups=n * n / (ms * 1e-3) / 1e9, peak_bytes=peak,
                          laps=laps, R=R, TW=TW, W=W)
         log(f"phase full-size {name} {n}x{n} R {R}"
             + (f" TW {TW}" if TW else "") + f" W {W} ({pskew.shape[0]} row "
             f"blocks, {pskew.shape[1]} steps): kernel {ms:.3f} ms "
-            f"({out[name]['gcups']:.3f} GCUPS), plain {plain_ms:.1f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), bit-exact")
+            f"({out[name]['gcups']:.3f} GCUPS, {per_fill} launch a fill), "
+            f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.2f}% of it, bit-exact")
         del pskew, got_t, want_t
         torch.cuda.empty_cache()
     return out
@@ -1969,7 +1987,8 @@ def time_probe_kernels(torch, res) -> dict:
     return out
 
 
-def body_shares(per_spec, dense_spec, fill, runs, banded, giant, probe):
+def body_shares(per_spec, dense_spec, fill, runs, banded, giant, wave,
+                probe):
     """Each fill's GCUPS in this run beside the same run's roofline body
     for its spec and the published int32 bound: logged, and returned."""
     from gpuseqalign_tpu_torch.bench.vpu_probe import INT32_OPS_PER_S
@@ -1993,6 +2012,9 @@ def body_shares(per_spec, dense_spec, fill, runs, banded, giant, probe):
                                                 g["launches"])
     rows["mlsp_fill_batch nw_ag pair_generated_1"] = (
         live_gcups(fill, "nw_ag"), "nw_ag", fill["launches"] / fill["calls"])
+    for name, e in wave.items():
+        rows[f"{name} nw_lg 23728^2 R {e['R']}"] = (
+            e["gcups"], "nw_lg", e["launches_per_fill"])
     rows["mlsp_tiny nw_ag synth_16384"] = (live_gcups(
         runs["synth_16384_nw_ag"]["kernels"]["mlsp_tiny"], "nw_ag"), "nw_ag",
         None)
@@ -2255,8 +2277,9 @@ def main() -> int:
     log(f"launches: cli {cli_launches}, full-size cli nw_lg mlsp_fill "
         f"{main_launches}, dense_fill {dense_launches}, v1 flows "
         f"{wave_launches}")
-    if "full" in phases and min(wave_launches.values()) <= 0:
-        fail(f"a v1 wavefront kernel was never launched: {wave_launches}")
+    if "full" in phases and set(wave_launches.values()) != {1}:
+        fail(f"a v1 wavefront flow did not launch its kernel once: "
+             f"{wave_launches}")
 
     # 6. the batch path
     runs = {}
@@ -2303,7 +2326,7 @@ def main() -> int:
     if phases != set(PHASES):
         log(f"partial run ({sorted(phases)}): no result line")
         return 0
-    body_shares(per_spec, dense_spec, fill, runs, banded, giant, probe)
+    body_shares(per_spec, dense_spec, fill, runs, banded, giant, wave, probe)
     head = per_spec["nw_ag"]
     dense_head = dense_spec["nw_ag"]
     banded_head = banded["nw_ag"]

@@ -15,8 +15,9 @@ as the registry's sparse names do, so it can stand in a registry bundle.
 Departures from the JAX flows: a spec other than nw_lg gets
 ``Status.errorInvalidValue`` (the JAX flows fill NW-linear H whatever
 the spec), as do a sparse tile that ``mlsp_params_ok`` refuses and a row
-block above the kernel's largest instance (``wavefront_cuda.MAX_R``).
-``res.shmem_peak_allocs`` is the CUDA kernel's own shared memory; the
+block above the largest the wrappers take (``wavefront_cuda.MAX_R``).
+``res.shmem_peak_allocs`` stays 0: the row-strip kernel uses no shared
+memory (its state is in registers, its carry in device memory), and the
 TPU's VMEM count (``_v1_vmem_bytes``) has no counterpart.
 """
 
@@ -158,8 +159,6 @@ def align_dense(pr: AlgParams, nw: AlgInput, res: AlgResult) -> Status:
     H_dev = dense_nw_lg(subst_d, y_d, x_d, nw.gapo_cost, R=R, W=256)
     synchronize(dev)
     res.sw_align.lap("align.calc")
-    res.shmem_peak_allocs = max(res.shmem_peak_allocs,
-                                wavefront_cuda.SMEM_BYTES)
     return _finish_dense_from_device(nw, res, H_dev)
 
 
@@ -194,8 +193,6 @@ def align_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult,
     hcol = hcol_d.cpu().numpy()
     sw.lap("align.cpy_host")
     nw.note_device_alloc(int(hrow.nbytes + hcol.nbytes))
-    res.shmem_peak_allocs = max(res.shmem_peak_allocs,
-                                wavefront_cuda.SMEM_BYTES)
 
     # The generic (hrows, hcols) form of _mlsp_store: hrows[it] = row
     # it*R; hcols[it, r, jt] = H[it*R + 1 + r, jt*TW].

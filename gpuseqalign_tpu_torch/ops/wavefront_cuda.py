@@ -1,11 +1,15 @@
-"""Wrappers of the CUDA row-block wavefront fills (``ops/csrc/wavefront.cu``).
+"""Wrappers of the CUDA row-strip wavefront fills (``ops/csrc/wavefront.cu``).
 
 ``mlsp_nw_lg_fill`` (K2, the tile headers) and ``dense_nw_lg_fill`` (K4,
 the wavefront history) take the inputs of their plain versions in
 ``ops/wavefront_plain.py`` and return the same outputs. On a CUDA tensor
-each launches its kernel, one launch per row block in stream order on the
-current stream (row block b reads the row that block b-1 wrote), or
-raises; it uses the plain version only for tensors that lie on the CPU.
+each launches its kernel once a fill on the current stream, or raises; it
+uses the plain version only for tensors that lie on the CPU.
+
+The kernel cuts each row block into strips of ``STRIP_ROWS`` rows, one
+warp a strip, hands strips out by an atomic ticket and passes each strip's
+bottom row to the strip below through device memory. The wrapper sizes and
+zeroes that scratch (``scratch``) on every call.
 
 ``LAUNCHES`` counts kernel launches by kernel name, so a run can show that
 it went through the kernels.
@@ -23,14 +27,28 @@ from .wavefront_plain import dense_nw_lg_plain, mlsp_nw_lg_plain
 KERNELS = ("wavefront_mlsp", "wavefront_dense")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-# The largest row block the kernel has an instance for: R/K threads of K
-# consecutive rows each, K in {1, 2, 4, 8, 16}, at most 1024 threads.
+# The largest row block the wrappers take.
 MAX_R = 4096
-# The kernel's own shared memory: a double-buffered hand-off slot for each
-# of up to 32 warps (``xh`` in ops/csrc/wavefront.cu), in bytes.
-SMEM_BYTES = 2 * 32 * 4
+# The kernel's strip height (32 * ``kLaneRows``): it divides every row
+# block R (a multiple of 128). A block of R rows is R / STRIP_ROWS strips.
+STRIP_ROWS = 128
 
 _lib = None
+
+
+def scratch(blocks: int, R: int, cols_p: int, dev: torch.device
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A launch's own scratch for ``blocks`` row blocks of ``R`` rows: the
+    counters zeroed (the ticket and one a strip), and a carry row of
+    cols_p + 1 ints for each strip that is not the last of its block (none
+    where R = STRIP_ROWS: the carry is hrow). The kernel reads no carry
+    element before its counter passes it."""
+    per_block = R // STRIP_ROWS
+    prog = torch.zeros(1 + blocks * per_block, dtype=torch.int32, device=dev)
+    n_carry = blocks * (per_block - 1)
+    carry = (torch.empty((n_carry, cols_p + 1), dtype=torch.int32,
+                         device=dev) if n_carry else None)
+    return prog, carry
 
 
 def load_lib() -> ctypes.CDLL:
@@ -41,12 +59,13 @@ def load_lib() -> ctypes.CDLL:
 
         lib = load("wavefront")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wavefront_fill_block.argtypes = [
+        lib.wavefront_fill.argtypes = [
             i, p, i, i, i, i,          # mlsp, pskew, B, nspad, R, cols_p
-            i, i, i, i,                # tw, ct, gapo, b
-            p, i, p, p, p,             # hrow, hrow_len, hcol, vhist, stream
+            i, i, i,                   # tw, ct, gapo
+            p, i, p, p, p,             # hrow, hrow_len, carry, hcol, vhist
+            p, p,                      # prog, stream
         ]
-        lib.wavefront_fill_block.restype = ctypes.c_int
+        lib.wavefront_fill.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -58,7 +77,7 @@ def nspad_of(R: int, cols_p: int, W: int) -> int:
 
 
 def _check(pskew: torch.Tensor, cols_p: int, W: int,
-           TW: Optional[int] = None) -> None:
+           TW: Optional[int]) -> None:
     """Raise on anything the kernel does not take."""
     if pskew.dtype != torch.int32:
         raise TypeError(f"pskew must be int32, got {pskew.dtype}")
@@ -72,8 +91,8 @@ def _check(pskew: torch.Tensor, cols_p: int, W: int,
     if B < 1 or sub < 1 or cols_p < 1:
         raise ValueError(f"empty fill: B {B}, R {R}, cols_p {cols_p}")
     if R > MAX_R:
-        raise ValueError(f"row block R = {R} is above the largest kernel "
-                         f"instance ({MAX_R})")
+        raise ValueError(f"row block R = {R} is above the largest the "
+                         f"wrappers take ({MAX_R})")
     if W < 128 or W % 128:
         raise ValueError(f"W = {W} must be a positive multiple of 128")
     if nspad != nspad_of(R, cols_p, W):
@@ -92,22 +111,22 @@ def _launch(name: str, pskew: torch.Tensor, cols_p: int, gapo: int,
             vhist: Optional[torch.Tensor]) -> None:
     lib = load_lib()
     B, nspad, sub, _ = pskew.shape
+    R = sub * 128
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     dev = pskew.device
     with torch.cuda.device(dev):
+        prog, carry = scratch(B, R, cols_p, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for b in range(B):
-            rc = lib.wavefront_fill_block(
-                int(hcol is not None), ptr(pskew), B, nspad, sub * 128,
-                cols_p, tw, ct, gapo, b, ptr(hrow), hrow.shape[1],
-                ptr(hcol), ptr(vhist), stream)
-            if rc != 0:
-                raise RuntimeError(f"{name} launch failed on row block {b}: "
-                                   f"cudaError {rc}")
-            LAUNCHES[name] += 1
+        rc = lib.wavefront_fill(
+            int(hcol is not None), ptr(pskew), B, nspad, R, cols_p, tw, ct,
+            gapo, ptr(hrow), hrow.shape[1], ptr(carry), ptr(hcol),
+            ptr(vhist), ptr(prog), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
 
 
 def mlsp_nw_lg_fill(pskew: torch.Tensor, gapo: int, *, cols_p: int,
@@ -132,7 +151,7 @@ def dense_nw_lg_fill(pskew: torch.Tensor, gapo: int, *, cols_p: int,
                      W: int) -> torch.Tensor:
     """K4: the wavefront history vhist of the fill whose profile ``pskew``
     holds (``wavefront_plain`` layout)."""
-    _check(pskew, cols_p, W)
+    _check(pskew, cols_p, W, None)
     if pskew.device.type == "cpu":
         return dense_nw_lg_plain(pskew, gapo, cols_p=cols_p)
     if pskew.device.type != "cuda":
@@ -140,7 +159,7 @@ def dense_nw_lg_fill(pskew: torch.Tensor, gapo: int, *, cols_p: int,
     B = pskew.shape[0]
     i32 = dict(dtype=torch.int32, device=pskew.device)
     # Row (b+1)*R of H, which row block b+1 reads as its top row.
-    carry = torch.empty((B, cols_p + 1), **i32)
+    hrow = torch.empty((B, cols_p + 1), **i32)
     vhist = torch.empty(pskew.shape, **i32)
-    _launch("wavefront_dense", pskew, cols_p, gapo, carry, 1, 0, None, vhist)
+    _launch("wavefront_dense", pskew, cols_p, gapo, hrow, 1, 0, None, vhist)
     return vhist

@@ -264,7 +264,7 @@ def test_flows_match_reference(blosum62, rows, cols):
         else:
             _, jnw, _ = run_jax("tpu2_xla_rowscan", blosum62, y, x, {})
             np.testing.assert_array_equal(nw.score, jnw.score)
-        assert res.shmem_peak_allocs == wavefront_cuda.SMEM_BYTES
+        assert res.shmem_peak_allocs == 0  # the kernel has no shared memory
 
 
 @pytest.mark.parametrize("spec", ["nw_ag", "sw_lg", "sw_ag"])
