@@ -19,7 +19,16 @@ Phases, each of which makes the script exit non-zero if it fails:
                 with headers and cost-only, ragged live regions, tile_h
                 128, 16 and 1, a tall bucket of 201 strips, each case 3
                 times; also held pair by pair against mlsp_fill),
-                mlsp_tiny (cost-only, small pairs), dense_fill (K3, the
+                mlsp_tiny (K6, cost-only, small pairs: one warp a pair,
+                its row strips in turn; every case at 1-4 warps a block,
+                3 times each: ragged live rows, pairs one
+                row taller than a strip, 1-row and 1-column partners, SW
+                ties across lane and strip boundaries, a bucket that fills
+                every SM 8 times beside a one-pair bucket, a 1000 x 20000
+                bucket whose carry rows go to global scratch; then the
+                engine's route by launch counters: the one-pair bucket
+                through mlsp_fill_batch, the full one through mlsp_tiny),
+                dense_fill (K3, the
                 strip kernel's dense entry: the full H of one pair against
                 rowscan_dense, ragged strips and chunks, a pair of 202
                 strips, other strip heights and warps a block on two
@@ -67,14 +76,16 @@ Phases, each of which makes the script exit non-zero if it fails:
   6. throughput the batch path: bench.throughput.main on the card for
                 resrc/pair_generated_1.txt (all four specs, pow2 buckets,
                 oracle check of 5 pairs) and 16384 synthetic pairs of
-                300-500 residues (nw_ag, sw_ag); every pair's cost and best
-                cell held against scores_batch_plain on the card, bucket by
-                bucket; pairs/s over the median of 5 windows, with every
-                window; each kernel's CUDA-event time per bucket and its
-                bound over the live cells; mlsp_fill_batch and mlsp_tiny
-                must both have launched in the pair_generated_1 runs. Then
+                300-500 residues (all four specs); every pair's cost and
+                best cell held against scores_batch_plain on the card,
+                bucket by bucket; pairs/s over the median of 5 windows,
+                with every window; each kernel's CUDA-event time per
+                bucket (by the engine's route, parallel/batch.fill_route)
+                and its bound over the live cells; every kernel the route
+                gives a bucket must have launched in the run. Then
                 mlsp_fill_batch timed against its plain version, mlsp_tiny's
-                block-size sweep over bucket sizes, and a torch.profiler
+                schedule sweep (warps a block, beside K5 and the engine's
+                pick) over bucket sizes, and a torch.profiler
                 trace of three synth_16384 nw_ag windows (device idle share,
                 host time of each step of the engine)
   7. giant      the giant-pair engine: tpu9_giant_mlsp beside cpu1_st_row
@@ -152,7 +163,7 @@ SEQS = os.path.join(RESRC, "seq_generated.fa")
 THROUGHPUT_RUNS = (
     ("pair_generated_1",
      ["--seqPairPath", os.path.join(RESRC, "pair_generated_1.txt")], SPECS),
-    ("synth_16384", ["--synthPairs", "16384,300,500"], ("nw_ag", "sw_ag")),
+    ("synth_16384", ["--synthPairs", "16384,300,500"], SPECS),
 )
 # The giant pair of BASELINE.json's config 5 (100k x 100k), made with
 # numpy from a fixed seed over the blosum62 alphabet.
@@ -742,12 +753,6 @@ def check_batch_kernels(torch, subst) -> int:
         # tall: 6416 = 16 x 401 rows, 201 strips of 32 rows
         (6416, 300, [(6416, 300), (6400, 299), (6000, 17)]),
     ]
-    tiny_buckets = [
-        (200, 300, [(200, 300), (1, 1), (150, 1), (1, 250), (37, 299)]),
-        (512, 512, [(512, 512), (300, 400), (1, 1), (480, 1), (257, 511),
-                    (511, 2)] * 8),
-        (1000, 20000, [(1000, 20000), (999, 1), (1, 1), (640, 15000)]),
-    ]
     n = 0
     cap = batch_cuda.HEADER_CAP_WORDS
     for spec in SPECS:
@@ -783,23 +788,128 @@ def check_batch_kernels(torch, subst) -> int:
                         fail(f"mlsp_fill_batch != mlsp_fill: {spec} pair "
                              f"{p} of bucket {rows_p}x{cols_p}, {name}")
             n += 1
-        for k, (rows_p, cols_p, sizes) in enumerate(tiny_buckets):
-            pairs = random_pairs(sizes, S, 20 + k)
-            ys, xs, adjrs, adjcs = stack_bucket(pairs, range(len(pairs)),
-                                                rows_p, cols_p, dev)
+    return n + check_tiny_kernel(torch, subst)
+
+
+def tie_pair(subst_np, rows, cols, start, col):
+    """A pair for SW ties: one sequence all of a filler letter but for runs
+    of 12 copies of the letter that scores highest against itself, ending
+    at rows start, start + 16, ... <= rows; the other all of a second
+    filler but for one run ending at column col. Every score but that
+    letter against itself is negative, so the best local score (12 times
+    its self-score) is reached at (row, col) for every run's end row: a
+    tie the kernel must break to the smallest row, start."""
+    import numpy as np
+
+    S = subst_np.shape[0]
+    w = int(np.argmax(subst_np.diagonal()))
+    fy, fx = next((a, b) for a in range(S) for b in range(S)
+                  if subst_np[a, b] < 0 and subst_np[a, w] < 0
+                  and subst_np[w, b] < 0)
+    y = np.full(1 + rows, fy, np.int32)
+    x = np.full(1 + cols, fx, np.int32)
+    y[0] = x[0] = 0
+    for end in range(start, rows + 1, 16):
+        y[end - 11:end + 1] = w
+    x[col - 11:col + 1] = w
+    return y, x
+
+
+def tiny_cases(S, subst_np) -> list:
+    """K6's cases: (label, rows_p, cols_p, pairs)."""
+    cases = [(f"{r}x{c}", r, c, random_pairs(sizes, S, 20 + k))
+             for k, (r, c, sizes) in enumerate((
+                 (200, 300, [(200, 300), (1, 1), (150, 1), (1, 250),
+                             (37, 299)]),
+                 (512, 512, [(512, 512), (300, 400), (1, 1), (480, 1),
+                             (257, 511), (511, 2)] * 8),
+                 # Live rows a multiple of no strip height; a pair one row
+                 # taller than a strip of 256 rows (257: two of 160) and
+                 # one of 33 rows (a strip of 64, 31 dead); 1-row and
+                 # 1-column partners.
+                 (512, 512, [(449, 300), (257, 301), (129, 512), (33, 40),
+                             (97, 95), (1, 511), (511, 1), (2, 2), (1, 1)]),
+                 (1000, 20000, [(1000, 20000), (999, 1), (1, 1),
+                                (640, 15000)]),
+             ))]
+    # SW ties across lane and strip boundaries: runs every 16 rows from
+    # row 16, 96, 128 or 160, so the best value recurs in many lanes and,
+    # in the pairs of 480, 288 and 257 rows (two strips of 256, 160 and 160
+    # rows), in both strips; from row 160 in a pair of 288 or 257 rows the
+    # first run ends on the first strip's last row.
+    cases.append(("ties", 512, 512, [
+        tie_pair(subst_np, rows, 400, start, 200)
+        for rows in (480, 288, 257, 200) for start in (16, 96, 128, 160)]))
+    # A bucket that fills every SM of an H100 several times (1100 pairs,
+    # 8 a SM) beside a one-pair bucket.
+    rng_sizes = [(int(a), int(b)) for a, b in
+                 zip(range(300, 500), range(500, 300, -1))] * 6
+    cases.append(("many", 512, 512, random_pairs(rng_sizes[:1100], S, 30)))
+    cases.append(("one", 512, 512, random_pairs([(400, 450)], S, 31)))
+    return cases
+
+
+def check_tiny_kernel(torch, subst) -> int:
+    """mlsp_tiny (K6) against scores_batch_plain on every case of
+    tiny_cases, every spec, at every block the wrapper takes (1 to
+    MAX_WARPS warps), each REPEATS times; then the engine's route by launch
+    counters: the one-pair bucket through the batched fill (K5), the
+    bucket that fills the card through K6, both equal to the plain
+    version. Returns the number of cases."""
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
+    from gpuseqalign_tpu_torch.ops import batch_cuda, tiny_cuda
+    from gpuseqalign_tpu_torch.ops.batch_plain import scores_batch_plain
+    from gpuseqalign_tpu_torch.parallel.batch import (
+        bucket_scores,
+        fill_route,
+        stack_bucket,
+    )
+
+    dev = torch.device("cuda")
+    S = subst.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = range(1, tiny_cuda.MAX_WARPS + 1)
+    n = 0
+    routes = {}
+    for label, rows_p, cols_p, pairs in tiny_cases(S, subst.cpu().numpy()):
+        ys, xs, adjrs, adjcs = stack_bucket(pairs, range(len(pairs)),
+                                            rows_p, cols_p, dev)
+        for spec in SPECS:
             args = (subst, ys, xs, GAPO, GAPE[spec], adjrs, adjcs)
-            want = scores_batch_plain(*args[:3], adjrs, adjcs, GAPO,
+            want = scores_batch_plain(subst, ys, xs, adjrs, adjcs, GAPO,
                                       GAPE[spec], **kind_gap(spec))
-            for threads in (32, 64, 128, 256):
-                got = batch_cuda.tiny_scores(*args, _threads=threads,
+            for warps, rep in itertools.product(blocks, range(REPEATS)):
+                got = batch_cuda.tiny_scores(*args, _warps=warps,
                                              **kind_gap(spec))
                 torch.cuda.synchronize()
                 for name, g, w in zip(("cost", "best_i", "best_j"), got,
                                       want):
                     if not torch.equal(g, w):
-                        fail(f"mlsp_tiny != plain: {spec} bucket "
-                             f"{rows_p}x{cols_p} threads {threads}, {name}")
-                n += 1
+                        fail(f"mlsp_tiny != plain: {spec} case {label} "
+                             f"({rows_p}x{cols_p}) {warps} warps a block "
+                             f"run {rep}, {name}")
+            n += 1
+            if label not in ("many", "one"):
+                continue
+            # Pairs with an empty sequence never reach bucket_scores.
+            f0, t0 = batch_cuda.FILL_LAUNCHES, batch_cuda.TINY_LAUNCHES
+            got = bucket_scores(AlignSpec.from_name(spec), *args[:3],
+                                adjrs, adjcs, GAPO, GAPE[spec])
+            torch.cuda.synchronize()
+            launched = (batch_cuda.FILL_LAUNCHES - f0,
+                        batch_cuda.TINY_LAUNCHES - t0)
+            route = fill_route(rows_p, len(pairs), sms)
+            if launched != {"fill": (1, 0), "tiny": (0, 1)}[route]:
+                fail(f"bucket_scores {spec} case {label}: route {route} "
+                     f"but launches (K5, K6) {launched}")
+            if not torch.equal(got, torch.stack(want)):
+                fail(f"bucket_scores != plain: {spec} case {label}")
+            routes[label] = route
+    if routes != {"many": "tiny", "one": "fill"}:
+        fail(f"the engine's routes of the K6 buckets: {routes}")
+    log(f"phase kernels: mlsp_tiny cases bit-exact at {list(blocks)} warps "
+        f"a block, {REPEATS} times each; routes by launch counters "
+        f"{routes}")
     return n
 
 
@@ -812,14 +922,15 @@ def phase_throughput(torch, subst, S) -> dict:
     from gpuseqalign_tpu_torch.ops import batch_cuda
     from gpuseqalign_tpu_torch.ops.batch_plain import scores_batch_plain
     from gpuseqalign_tpu_torch.parallel.batch import (
-        TILE_FILL_MIN_ROWS,
         bucket_pairs,
         bucket_scores,
+        fill_route,
         stack_bucket,
     )
     from gpuseqalign_tpu_torch.core.types import AlignSpec
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
     os.makedirs(OUT, exist_ok=True)
     runs = {}
@@ -865,7 +976,8 @@ def phase_throughput(torch, subst, S) -> dict:
                    for k in launches}
             aspec = AlignSpec.from_name(spec)
             for (rows_p, cols_p), idxs in buckets.items():
-                kernel = ("mlsp_fill_batch" if rows_p >= TILE_FILL_MIN_ROWS
+                kernel = ("mlsp_fill_batch"
+                          if fill_route(rows_p, len(idxs), sms) == "fill"
                           else "mlsp_tiny")
                 ys, xs, adjrs, adjcs = stack_bucket(pairs, idxs, rows_p,
                                                     cols_p, dev)
@@ -897,8 +1009,9 @@ def phase_throughput(torch, subst, S) -> dict:
                 e["padded_ops"] += cell_insns(spec) * len(idxs) * rows_p \
                     * cols_p
                 e["buckets"] += 1
-            if name == "pair_generated_1" and min(launches.values()) <= 0:
-                fail(f"throughput {tag}: a kernel never launched: {launches}")
+            if any(e["buckets"] and launches[k] <= 0 for k, e in per.items()):
+                fail(f"throughput {tag}: a kernel the engine routes a bucket "
+                     f"to never launched: {launches}")
             for k, e in per.items():
                 e["launches"] = launches[k]
                 e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["ops"])
@@ -989,16 +1102,25 @@ def time_fill_batch(torch, subst, S) -> dict:
     return r
 
 
-def sweep_tiny_threads(torch, subst, S) -> None:
-    """mlsp_tiny's CUDA-event time (nw_ag, mean of 3) against its block
-    size, on the first n pairs of the synthetic run's 512 x 512 bucket for
-    n from one pair to 16384 (0.01 to 124 pairs per SM), and on the one
-    wide pair of pair_generated_1's 512 x 16384 bucket, beside the block
-    size the wrapper picks."""
+def sweep_tiny_schedule(torch, subst, S) -> list:
+    """mlsp_tiny's CUDA-event time (nw_ag, mean of 6 in two turns after a
+    warm-up) at each block size (1 to MAX_WARPS warps) beside the batched
+    fill's cost-only call (K5) and the engine's pick (bucket_scores, with
+    its route), on the first n pairs of the synthetic run's 512 x 512 bucket
+    for n from one pair to 16384 (0.01 to 124 pairs per SM) and on each of
+    pair_generated_1's buckets of fewer than TILE_FILL_MIN_ROWS rows (one
+    or two pairs each, up to 512 x 16384). Returns one dict a point."""
     from gpuseqalign_tpu_torch.bench import throughput
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
     from gpuseqalign_tpu_torch.io.subst import parse_subst_file
-    from gpuseqalign_tpu_torch.ops import batch_cuda
-    from gpuseqalign_tpu_torch.parallel.batch import bucket_pairs, stack_bucket
+    from gpuseqalign_tpu_torch.ops import batch_cuda, tiny_cuda
+    from gpuseqalign_tpu_torch.parallel.batch import (
+        TILE_FILL_MIN_ROWS,
+        bucket_pairs,
+        bucket_scores,
+        fill_route,
+        stack_bucket,
+    )
 
     spec = "nw_ag"
     dev = torch.device("cuda")
@@ -1006,27 +1128,46 @@ def sweep_tiny_threads(torch, subst, S) -> None:
     letters = parse_subst_file(os.path.join(RESRC, "subst.json")).letter_map
     synth = throughput.synth_pairs(16384, 300, 500, S)
     synth_idxs = bucket_pairs(synth, "pow2")[(512, 512)]
-    wide = throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters)
     cases = [(synth, synth_idxs[:n], (512, 512))
              for n in (1, 33, 132, 264, 528, 1056, 2112, 4224, 16384)]
-    cases.append((wide, bucket_pairs(wide, "pow2")[(512, 16384)],
-                  (512, 16384)))
+    wide = throughput.file_pairs(SEQS, THROUGHPUT_RUNS[0][1][1], letters)
+    cases += [(wide, idxs, key) for key, idxs in
+              sorted(bucket_pairs(wide, "pow2").items())
+              if key[0] < TILE_FILL_MIN_ROWS]
+    out = []
     for pairs, idxs, key in cases:
         ys, xs, adjrs, adjcs = stack_bucket(pairs, idxs, *key, dev)
         args = (subst, ys, xs, GAPO, GAPE[spec], adjrs, adjcs)
-        times = {}
-        for threads in (None, 32, 64, 128, 256):
-            def call():
-                batch_cuda.tiny_scores(*args, _threads=threads,
-                                       **kind_gap(spec))
+        calls = {w: (lambda w=w: batch_cuda.tiny_scores(
+            *args, _warps=w, **kind_gap(spec)))
+            for w in range(1, tiny_cuda.MAX_WARPS + 1)}
+        calls["K5"] = lambda: batch_cuda.mlsp_fill_batch(
+            *args, tile_h=math.gcd(key[0], 128),
+            tile_w=math.gcd(key[1], 512), **kind_gap(spec))
+        calls["pick"] = lambda: bucket_scores(
+            AlignSpec.from_name(spec), subst, ys, xs, adjrs, adjcs, GAPO,
+            GAPE[spec])
+        for call in calls.values():
             call()
-            times[threads] = cuda_ms(torch, call, 3)
-        log(f"phase throughput: mlsp_tiny {spec} bucket {key[0]}x{key[1]} "
-            f"of {len(idxs)} pairs ({len(idxs) / sms:.2f} per SM), ms by "
-            f"block size: "
+        # In turns, forward then backward: the first call timed after the
+        # bucket is stacked read slower in some runs.
+        times = dict.fromkeys(calls, 0.0)
+        for name in [*calls, *reversed(calls)]:
+            times[name] += cuda_ms(torch, calls[name], 3) / 2
+        route = fill_route(key[0], len(idxs), sms)
+        out.append(dict(bucket=key, pairs=len(idxs),
+                        live_cells=live_cells(pairs, idxs), route=route,
+                        ms=times))
+        log(f"phase throughput: schedule sweep {spec} bucket "
+            f"{key[0]}x{key[1]} of {len(idxs)} pairs "
+            f"({len(idxs) / sms:.2f} per SM), ms of mlsp_tiny by warps a "
+            f"block: "
             + ", ".join(f"{k}: {v:.4f}" for k, v in times.items()
-                        if k is not None)
-            + f"; the wrapper's pick: {times[None]:.4f}")
+                        if k not in ("K5", "pick"))
+            + f"; K5 cost-only {times['K5']:.4f}; the engine's pick "
+            f"({route}, mlsp_tiny at {tiny_cuda.WARPS}) "
+            f"{times['pick']:.4f}")
+    return out
 
 
 def _union_ms(intervals, lo, hi) -> float:
@@ -2015,9 +2156,10 @@ def body_shares(per_spec, dense_spec, fill, runs, banded, giant, wave,
     for name, e in wave.items():
         rows[f"{name} nw_lg 23728^2 R {e['R']}"] = (
             e["gcups"], "nw_lg", e["launches_per_fill"])
-    rows["mlsp_tiny nw_ag synth_16384"] = (live_gcups(
-        runs["synth_16384_nw_ag"]["kernels"]["mlsp_tiny"], "nw_ag"), "nw_ag",
-        None)
+    for spec in SPECS:
+        rows[f"mlsp_tiny {spec} synth_16384"] = (live_gcups(
+            runs[f"synth_16384_{spec}"]["kernels"]["mlsp_tiny"], spec), spec,
+            None)
     out = {}
     for name, (gcups, spec, launches) in rows.items():
         body = probe[f"roofline_{spec}"]["gcups"]
@@ -2287,7 +2429,7 @@ def main() -> int:
         t0 = time.perf_counter()
         runs = phase_throughput(torch, subst, S)
         fill = time_fill_batch(torch, subst, S)
-        sweep_tiny_threads(torch, subst, S)
+        sweep_tiny_schedule(torch, subst, S)
         trace_synth_windows(torch, subst_np, S)
         times["throughput"] = time.perf_counter() - t0
 

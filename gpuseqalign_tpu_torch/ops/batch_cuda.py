@@ -7,8 +7,9 @@ bucket, every strip of every pair of the group in flight at once. The
 engine's cost-only call fills each pair's live cells alone; with
 ``headers=True`` it fills the padded grid and returns the tile headers.
 ``tiny_scores`` is the cost-only fill of small pairs
-(``ops/csrc/mlsp_tiny.cu``; plain version ``batch_plain.scores_batch_plain``):
-one launch per group, one thread block per pair.
+(``ops/csrc/mlsp_tiny.cu``, host side ``ops/tiny_cuda.py``; plain version
+``batch_plain.scores_batch_plain``): one launch per group of pairs, one
+warp a pair sweeping its row strips in turn.
 
 On a CUDA tensor each launches its kernel on the current stream or raises;
 it uses the plain version only for tensors that lie on the CPU. Both take
@@ -23,12 +24,11 @@ show that its main path went through the kernels.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import mlsp_cuda, strip_cuda
+from . import mlsp_cuda, strip_cuda, tiny_cuda
 from .batch_plain import mlsp_fill_batch_plain, scores_batch_plain
 
 FILL_LAUNCHES = 0
@@ -37,35 +37,6 @@ TINY_LAUNCHES = 0
 # Device words of tile headers and carry rows (and of tiny-fill scratch
 # rows) one group of pairs may hold; a larger bucket runs as several groups.
 HEADER_CAP_WORDS = 1 << 28
-# Threads of one tiny-fill block (a multiple of 32, at most 256). Large
-# blocks shorten each pair's serial chain and win while the bucket's blocks
-# fill at most half of the card's resident threads; past that, small blocks
-# idle fewer steps in each row group's ramp and win (PERF.md, the
-# block-size sweep of chip_smoke.py: on an H100 the crossover lies between
-# 4 and 8 pairs per SM).
-TINY_THREADS_MANY, TINY_THREADS_FEW = 128, 256
-
-_tiny_lib = None
-
-
-def _load_tiny() -> ctypes.CDLL:
-    global _tiny_lib
-    if _tiny_lib is None:
-        from .build import load
-
-        lib = load("mlsp_tiny")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mlsp_tiny_scratch_words.argtypes = [i, i, i, i, i]
-        lib.mlsp_tiny_scratch_words.restype = ctypes.c_longlong
-        lib.mlsp_tiny.argtypes = [
-            i, i, p, i, p, p,          # sw, affine, subst, S, ys, xs
-            i, i, p, p,                # gapo, gape, adjrs, adjcs
-            i, i, i, i,                # rows_p, cols_p, npairs, threads
-            p, p, p, p,                # cost, best, scratch, stream
-        ]
-        lib.mlsp_tiny.restype = ctypes.c_int
-        _tiny_lib = lib
-    return _tiny_lib
 
 
 def _check(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
@@ -180,36 +151,29 @@ def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 def tiny_scores(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                 gapo: int, gape: int, adjrs: torch.Tensor,
                 adjcs: torch.Tensor, *, kind: str, gap: str,
-                _threads: Optional[int] = None
+                _warps: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cost-only fill of a stacked bucket of small pairs; the outputs of
     ``scores_batch_plain``: (costs, best_i, best_j), each (B,) int32.
-    The block size follows from the pair count; ``_threads`` overrides it
-    (a hook for the checks and the block-size sweep)."""
+    The kernel runs ``tiny_cuda.WARPS`` pairs a block; ``_warps``
+    overrides it (a hook for the checks and the schedule sweep)."""
     global TINY_LAUNCHES
     _check(subst, ys, xs, adjrs, adjcs)
+    warps = _warps or tiny_cuda.WARPS
+    S = subst.shape[0]
+    tiny_cuda.check_warps(warps, S)
     if ys.device.type == "cpu":
         return scores_batch_plain(subst, ys, xs, adjrs, adjcs, gapo, gape,
                                   kind=kind, gap=gap)
 
-    lib = _load_tiny()
+    lib = tiny_cuda.load_lib()
     dev = ys.device
     n = ys.shape[0]
     rows_p, cols_p = ys.shape[1] - 1, xs.shape[1] - 1
     is_sw = kind == "sw"
     affine = gap == "affine"
-    threads = _threads
-    if threads is None:
-        props = torch.cuda.get_device_properties(dev)
-        resident = (props.multi_processor_count
-                    * props.max_threads_per_multi_processor)
-        threads = (TINY_THREADS_FEW if 2 * n * TINY_THREADS_FEW <= resident
-                   else TINY_THREADS_MANY)
-    nt = min(threads, 32 * -(-rows_p // 32))
     i32 = dict(dtype=torch.int32, device=dev)
-    S = subst.shape[0]
-    n_scratch = lib.mlsp_tiny_scratch_words(S, nt, cols_p, int(is_sw),
-                                            int(affine))
+    n_scratch = tiny_cuda.scratch_words(S, warps, cols_p, affine)
     group = n
     if n_scratch:
         group = max(1, min(n, HEADER_CAP_WORDS // n_scratch))
@@ -221,9 +185,9 @@ def tiny_scores(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
         for g0 in range(0, n, group):
             g = min(group, n - g0)
             rc = lib.mlsp_tiny(
-                int(is_sw), int(affine), _ptr(subst), S,
+                int(is_sw), int(affine), warps, _ptr(subst), S,
                 _ptr(ys[g0:]), _ptr(xs[g0:]), gapo, gape,
-                _ptr(adjrs[g0:]), _ptr(adjcs[g0:]), rows_p, cols_p, g, nt,
+                _ptr(adjrs[g0:]), _ptr(adjcs[g0:]), rows_p, cols_p, g,
                 _ptr(cost[g0:]), _ptr(best[g0:]), _ptr(scratch), stream,
             )
             if rc != 0:

@@ -2,14 +2,18 @@
 
 Port of gpuseqalign_tpu's ``parallel/batch.py``. Pairs are bucketed by
 padded shape, each bucket is stacked and copied to the card once, and
-every bucket goes through a kernel, chosen by its padded height:
+every bucket goes through a kernel, chosen by its padded height and, on
+a card, its pairs per SM (``fill_route``):
 
-  rows_p >= 1024  the batched fill (``ops/batch_cuda.mlsp_fill_batch``,
+  rows_p >= 1024, or fewer than TINY_MIN_PAIRS_PER_SM pairs per SM
+                  the batched fill (``ops/batch_cuda.mlsp_fill_batch``,
                   ``ops/csrc/strip_fill.cu``), tile gcd(rows_p, 128) x
                   gcd(cols_p, 512): each pair's live cells in row strips,
-                  one launch a group of pairs
-  rows_p <  1024  the tiny-pair fill (``ops/batch_cuda.tiny_scores``,
-                  ``ops/csrc/mlsp_tiny.cu``), one thread block per pair
+                  every strip in flight at once, one launch a group of
+                  pairs
+  otherwise       the tiny-pair fill (``ops/batch_cuda.tiny_scores``,
+                  ``ops/csrc/mlsp_tiny.cu``), one warp per pair sweeping
+                  its row strips in turn
 
 Pairs with an empty sequence (adjr < 2 or adjc < 2) never reach a kernel:
 their cost is the analytic edge, decided on the host. On the CPU the same
@@ -39,6 +43,26 @@ from .mesh import Mesh
 # Buckets at least this tall take the batched tile fill, shorter ones the
 # tiny-pair fill.
 TILE_FILL_MIN_ROWS = 1024
+# ... unless a shorter bucket holds fewer pairs than this per SM of its
+# card: the tiny-pair fill runs a pair's strips in turn on one warp, the
+# batched fill runs them all at once. On an H100 (chip_smoke.py's schedule
+# sweep, four runs, PERF.md) the batched fill took 6-16% less time at 1
+# pair per SM of 512 x 512 in three runs and 32-33% less on one 512 x
+# 16384 pair; at 2 pairs per SM the faster of the two changed between
+# runs; from 4 on the tiny-pair fill took 15-39% less.
+TINY_MIN_PAIRS_PER_SM = 2
+
+
+def fill_route(rows_p: int, npairs: int, sms: Optional[int]) -> str:
+    """"fill" (the batched fill) or "tiny" (the tiny-pair fill) for a
+    bucket of ``npairs`` pairs of ``rows_p`` padded rows on a card of
+    ``sms`` SMs; ``sms`` None (the CPU, where both routes give the same
+    outputs) decides by height alone."""
+    if rows_p >= TILE_FILL_MIN_ROWS:
+        return "fill"
+    if sms is not None and npairs < TINY_MIN_PAIRS_PER_SM * sms:
+        return "fill"
+    return "tiny"
 
 
 def _degenerate_cost(spec: AlignSpec, adjr: int, adjc: int, gapo: int,
@@ -148,10 +172,13 @@ def bucket_scores(spec: AlignSpec, subst: torch.Tensor, ys: torch.Tensor,
                   xs: torch.Tensor, adjrs: torch.Tensor, adjcs: torch.Tensor,
                   gapo: int, gape: int) -> torch.Tensor:
     """(3, b) int32 [costs, best_i, best_j] of one stacked bucket of pairs
-    with adjr, adjc >= 2, through the kernel of its height."""
+    with adjr, adjc >= 2, through the kernel ``fill_route`` picks."""
     rows_p, cols_p = ys.shape[1] - 1, xs.shape[1] - 1
     kw = dict(kind=spec.kind.value, gap=spec.gap.value)
-    if rows_p >= TILE_FILL_MIN_ROWS:
+    sms = None
+    if ys.device.type == "cuda":
+        sms = torch.cuda.get_device_properties(ys.device).multi_processor_count
+    if fill_route(rows_p, ys.shape[0], sms) == "fill":
         out = batch_cuda.mlsp_fill_batch(
             subst, ys, xs, gapo, gape, adjrs, adjcs,
             tile_h=math.gcd(rows_p, 128), tile_w=math.gcd(cols_p, 512),
