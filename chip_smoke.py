@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of gpuseqalign_tpu_torch (the PyTorch/CUDA port) on one card.
 
-    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant,probe]
+    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant,probe,tools]
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (CUDA
 toolkit with nvcc; the kernels are built from the checkout's sources).
@@ -114,6 +114,16 @@ Phases, each of which makes the script exit non-zero if it fails:
                 bench.headline once (nw_ag at 23728^2, its JSON line);
                 every probe kernel must have launched, and each is then
                 timed against its plain version on one card-sized call
+  9. tools      the user's tools on the card: bench.fuzz (a fixed seed,
+                --includeGiant; its cases hold a tpu7 tile side <= 3,
+                batch buckets that fill_route sends to K5 and to K6, and
+                the giant engine in every case) must report 0 failures
+                with K1, K3, K5, K6 and K7 launched; tune_v2 and
+                tune_banded (nw_ag) on reduced grids, every tile gated on
+                the oracle, each tile's ms and the winner printed, the
+                entries saved under a temporary root and read back; and
+                giant_demo's 100000^2 nw_ag fill, its first tile-header
+                row held against the plain fill of the same rows
 
 With every phase run (the default), the line before the last is a JSON
 object describing every kernel and the last line is the contract line
@@ -137,7 +147,7 @@ RESRC = os.path.join(HERE, "resrc")
 OUT = os.path.join(HERE, "logs", "chip_smoke")
 SPECS = ("nw_lg", "nw_ag", "sw_lg", "sw_ag")
 PHASES = ("build", "kernels", "cli", "full", "throughput", "giant",
-          "probe")
+          "probe", "tools")
 GAPO = -11
 GAPE = {"nw_lg": 0, "sw_lg": 0, "nw_ag": -2, "sw_ag": -2}
 
@@ -1386,21 +1396,32 @@ def banded_streams(torch, subst, y, x, spec, rows, cols, R, TW, bc, D, BL,
                          f"pass {p} {name}, run {rep}")
 
 
+def engine_geometry(spec, n_rows, n_cols, D, pr=None):
+    """(R, TW, band_cols, BL) the giant engine takes on the card for an
+    n_rows x n_cols pair of ``spec`` on D bands: ``pr``'s tile, else the
+    card's tuned cache's (ops/tuned.py), else 128 x 128."""
+    import torch
+
+    from gpuseqalign_tpu_torch.core.types import AlgParams, AlignSpec
+    from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
+
+    return band_geometry(pr or AlgParams({}), [n_rows], [n_cols], D,
+                         AlignSpec.from_name(spec), torch.device("cuda"))
+
+
 def time_banded(torch, subst, subst_np, n, S) -> dict:
     """K7 on the whole band of an n x n pair at D = 1 (the engine's
     geometry and its one call), every spec: CUDA-event ms (mean of 3
     after a warm-up), its plain version's (one call), max |diff| over
     every output, launches, GCUPS and bound."""
-    from gpuseqalign_tpu_torch.core.types import AlgParams
     from gpuseqalign_tpu_torch.ops import banded_cuda
     from gpuseqalign_tpu_torch.ops.banded_cuda import banded_pass
     from gpuseqalign_tpu_torch.ops.banded_plain import banded_pass_plain
-    from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
 
-    R, TW, bc, BL = band_geometry(AlgParams({}), [n], [n], 1)
-    rows_p = -(-n // (BL * R)) * BL * R
     out = {}
     for i, spec in enumerate(SPECS):
+        R, TW, bc, BL = engine_geometry(spec, n, n, 1)
+        rows_p = -(-n // (BL * R)) * BL * R
         y, x = padded_inputs(torch, subst_np, n, n, rows_p, bc, 500 + i)
         args = (subst, y, x, spec, n, n, R, TW, bc, 1, rows_p // R)
         band_chain(torch, banded_pass, *args)  # warm-up
@@ -1429,16 +1450,21 @@ def time_banded(torch, subst, subst_np, n, S) -> dict:
     return out
 
 
-def giant_inputs(torch, y_np, x_np, n_rows, n_cols, D, pr=None):
-    """The engine's geometry for an n_rows x n_cols pair on D bands and
-    the pair zero-padded to it, on the card: (R, TW, band_cols, BL,
-    rows_p, y, x)."""
+def giant_inputs(torch, y_np, x_np, n_rows, n_cols, D, pr=None, spec=None):
+    """The engine's geometry for an n_rows x n_cols pair on D bands (at
+    ``spec``'s tuned tile on the card when a spec is given, else at the
+    literal one) and the pair zero-padded to it, on the card: (R, TW,
+    band_cols, BL, rows_p, y, x)."""
     import numpy as np
 
     from gpuseqalign_tpu_torch.core.types import AlgParams
     from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
 
-    R, TW, bc, BL = band_geometry(pr or AlgParams({}), [n_rows], [n_cols], D)
+    if spec is None:
+        R, TW, bc, BL = band_geometry(pr or AlgParams({}), [n_rows],
+                                      [n_cols], D)
+    else:
+        R, TW, bc, BL = engine_geometry(spec, n_rows, n_cols, D, pr)
     rows_p = -(-max(n_rows, 1) // (BL * R)) * BL * R
     y = np.zeros(1 + rows_p, np.int32)
     x = np.zeros(1 + D * bc, np.int32)
@@ -1466,8 +1492,8 @@ def same_shared_tiles(a, rows_a, cols_a, b, rows_b, cols_b) -> bool:
 def giant_full(torch, subst, subst_np, S) -> dict:
     """The 100000 x 100000 pair through align_giant2 at D = 1 for every
     spec (the main path of the giant phase), its sparse layout held
-    against tpu7_pallas_mlsp's (K1) at the same 128 x 128 tile on every
-    tile both have, the cost and best cell too, and for nw_ag the sparse
+    against tpu7_pallas_mlsp's (K1) at the engine's tile (the card's
+    tuned one, else 128 x 128) on every tile both have, the cost and best cell too, and for nw_ag the sparse
     trace of both; then the fill alone timed with CUDA events and its
     every output held bit-exactly against banded_pass_plain's on the same
     inputs on the card. Returns per spec and the K7 launches of the
@@ -1504,8 +1530,9 @@ def giant_full(torch, subst, subst_np, S) -> dict:
         ref = make_alg_input(subst_np, y_np, x_np, GAPO, GAPE[spec], spec)
         rres = AlgResult()
         t0 = time.perf_counter()
+        R, TW = nw.tile_hcol_len - 1, nw.tile_hrow_len - 1
         if algs["tpu7_pallas_mlsp"].align(
-                AlgParams({"tileBy": [128], "tileBx": [128]}), ref, rres):
+                AlgParams({"tileBy": [R], "tileBx": [TW]}), ref, rres):
             fail(f"tpu7_pallas_mlsp {n}x{n} {spec} failed")
         k1_wall = time.perf_counter() - t0
         shape_g = (nw.tile_hdr_mat_rows, nw.tile_hdr_mat_cols)
@@ -1537,7 +1564,8 @@ def giant_full(torch, subst, subst_np, S) -> dict:
                      f"equal")
         laps = res.sw_align.laps()
         del nw, ref, res, rres
-        R, TW, bc, BL, rows_p, y, x = giant_inputs(torch, y_np, x_np, n, n, 1)
+        R, TW, bc, BL, rows_p, y, x = giant_inputs(torch, y_np, x_np, n, n, 1,
+                                                    spec=spec)
 
         def fill():
             return giant2_fill(subst, [y], [x], GAPO, GAPE[spec], [n + 1],
@@ -2128,6 +2156,141 @@ def time_probe_kernels(torch, res) -> dict:
     return out
 
 
+# The tools phase: the fuzz's seed and cases on the card (their draws hold
+# tpu7 tiles with a side <= 3, batch buckets for K5 and for K6, and every
+# case runs the giant engine), and the reduced tile grids of the tuners.
+TOOLS_FUZZ_SEED = 20261019
+TOOLS_FUZZ_CASES = 100
+TOOLS_V2_GRID = {"tileBy": [128, 256], "tileBx": [512, 1024]}
+TOOLS_BANDED_GRID = {"tileBy": [128, 256], "tileBx": [128]}
+DEMO_N = 100000
+
+
+def tools_fuzz(torch) -> dict:
+    """bench.fuzz.main on the card (fixed seed, TOOLS_FUZZ_CASES cases,
+    --includeGiant): it must report every case with 0 failures, and the
+    launch counters must show K1, K3, K5, K6 and K7 in the run. The seed's
+    draws are checked first for a tpu7 tile side <= 3 and for batch
+    buckets that fill_route sends to K5 and to K6."""
+    import contextlib
+    import io
+
+    from gpuseqalign_tpu_torch.bench import fuzz
+    from gpuseqalign_tpu_torch.ops import (
+        banded_cuda,
+        batch_cuda,
+        dense_cuda,
+        mlsp_cuda,
+    )
+
+    seed, n = TOOLS_FUZZ_SEED, TOOLS_FUZZ_CASES
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    small = []
+    for k in range(n):
+        c = fuzz._gen_case(seed, k)
+        if min(c["tpu7Tiles"]) <= 3 and min(len(c["y"]), len(c["x"])) > 1:
+            small.append(k)
+    routes = {}
+    for k in range(0, n, 5):
+        for r in fuzz.batch_routes(fuzz._gen_batch_case(seed, k, sms), sms):
+            routes[r] = routes.get(r, 0) + 1
+    if not small or set(routes) != {"fill", "tiny"}:
+        fail(f"tools fuzz seed {seed}: the draws miss a case (tpu7 tile "
+             f"side <= 3 in cases {small}, batch routes {routes})")
+    mlsp_cuda.LAUNCHES = dense_cuda.LAUNCHES = banded_cuda.LAUNCHES = 0
+    batch_cuda.FILL_LAUNCHES = batch_cuda.TINY_LAUNCHES = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fuzz.main(["--cases", str(n), "--seconds", "0", "--seed",
+                        str(seed), "--includeGiant"], device="cuda")
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"phase tools fuzz: {line}")
+    launches = {"mlsp_fill": mlsp_cuda.LAUNCHES,
+                "dense_fill": dense_cuda.LAUNCHES,
+                "mlsp_fill_batch": batch_cuda.FILL_LAUNCHES,
+                "mlsp_tiny": batch_cuda.TINY_LAUNCHES,
+                "banded_pass": banded_cuda.LAUNCHES}
+    if rc != 0 or f"{n} cases, 0 failures" not in out:
+        fail(f"tools fuzz seed {seed}: exit {rc}")
+    if min(launches.values()) <= 0:
+        fail(f"tools fuzz: a kernel was never launched: {launches}")
+    log(f"phase tools fuzz: {n} cases, 0 failures on the card in "
+        f"{wall:.1f} s (seed {seed}); tpu7 tile side <= 3 in cases {small}; "
+        f"batch buckets by route {routes}; launches {launches}")
+    return dict(cases=n, seed=seed, s=wall, launches=launches)
+
+
+def tools_tune(torch, subst_np, seq) -> dict:
+    """tune_v2 and tune_banded (nw_ag) on reduced grids at the release
+    pair's size, each tile gated on the oracle and timed with CUDA
+    events; both entries saved with save_defaults under a temporary root,
+    never into the checkout, and read back through ops/tuned.py."""
+    import contextlib
+    import io
+    import tempfile
+
+    from gpuseqalign_tpu_torch.bench import autotune
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
+    from gpuseqalign_tpu_torch.ops import tuned
+
+    spec = AlignSpec.from_name("nw_ag")
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, tuner, grid in (
+                ("tune_v2", autotune.tune_v2, TOOLS_V2_GRID),
+                ("tune_banded", autotune.tune_banded, TOOLS_BANDED_GRID)):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(buf):
+                best = tuner(subst_np, seq, spec, GAPO, GAPE["nw_ag"],
+                             grid=grid, verbose=True, device="cuda")
+            for line in buf.getvalue().splitlines():
+                log(f"phase tools {name} nw_ag {FULL_N}^2:{line}")
+            log(f"phase tools {name} nw_ag {FULL_N}^2: winner "
+                f"{json.dumps(best)} in {time.perf_counter() - t0:.1f} s")
+            out[name] = best
+        autotune.save_defaults(out["tune_v2"], spec.name, root=root)
+        autotune.save_defaults({"banded": out["tune_banded"]}, spec.name,
+                               root=root)
+        got = tuned.tuned_defaults(spec.name, "cuda", root=root)
+        if got != {**out["tune_v2"], "banded": out["tune_banded"]}:
+            fail(f"tools: the saved cache reads back as {got}")
+    return out
+
+
+def tools_demo(torch) -> dict:
+    """giant_demo.run_demo(DEMO_N, nw_ag) on the card; its first tile-header
+    row (H and F of row tile_h, and H and E of rows 1..tile_h at the tile
+    columns) held bit-exactly against mlsp_fill_plain on the same rows on
+    the card; then the demo's line."""
+    from gpuseqalign_tpu_torch.bench import giant_demo
+    from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
+
+    r = giant_demo.run_demo(DEMO_N, "nw_ag", "cuda")
+    th = r["tile"][0]
+    ins, kw = r["inputs"], dict(r["fill_kw"])
+    kw["adjr"] = 2 * th + 1
+    plain = mlsp_fill_plain(ins["subst"], ins["y"][:2 * th + 1].contiguous(),
+                            ins["x"], **kw)
+    got = {"hrows": r["headers"]["hrows"][1], "hcols": r["headers"]["hcols"][0],
+           "frows": r["headers"]["frows"][1], "ecols": r["headers"]["ecols"][0]}
+    want = {"hrows": plain["hrows"][1], "hcols": plain["hcols"][0],
+            "frows": plain["frows"][1], "ecols": plain["ecols"][0]}
+    err = max_abs_diff(torch, got, want)
+    if err:
+        fail(f"giant_demo {DEMO_N}^2: the first tile-header row differs from "
+             f"the plain fill's, max |diff| {err}")
+    log(f"phase tools giant_demo: card {card_line()}, tile {th}x"
+        f"{r['tile'][1]}, first fill (build included) {r['first_s']:.2f} s; "
+        f"first tile-header row bit-exact against mlsp_fill_plain")
+    log(f"phase tools giant_demo: {giant_demo.demo_line(r)}")
+    return dict(ms=r["ms"], gcups=r["gcups"], tile=r["tile"],
+                out_bytes=r["out_bytes"])
+
+
 def body_shares(per_spec, dense_spec, fill, runs, banded, giant, wave,
                 probe):
     """Each fill's GCUPS in this run beside the same run's roofline body
@@ -2462,6 +2625,15 @@ def main() -> int:
         log(f"phase probe launches: {probe_launches}")
         probe_timing = time_probe_kernels(torch, probe)
         times["probe"] = time.perf_counter() - t0
+
+    # 9. the user's tools: the fuzz, the tuners and the giant-pair demo
+    if "tools" in phases:
+        t0 = time.perf_counter()
+        tools_fuzz(torch)
+        times["tools_fuzz"] = time.perf_counter() - t0
+        tools_tune(torch, subst_np, seq)
+        tools_demo(torch)
+        times["tools"] = time.perf_counter() - t0
 
     log("phase times s: " + json.dumps({k: round(v, 2)
                                           for k, v in times.items()}))

@@ -4,8 +4,9 @@ counterpart of the repository's root ``bench.py``).
 
 Problem: the reference's release workload, one len23728 x len23728 pair
 (``resrc/pair_release.txt``: len23728 against itself) with blosum62, gapo
--11 and gape -2, filled by ``ops/mlsp_cuda.py::mlsp_fill`` (K1) at its
-default tile, 128 x 512. After one warm-up fill, the mean of five fills
+-11 and gape -2, filled by ``ops/mlsp_cuda.py::mlsp_fill`` (K1) at the card's
+tuned nw_ag tile (``ops/tuned.py``, as the root ``bench.py`` reads its
+TPU's), else 128 x 512. After one warm-up fill, the mean of five fills
 is timed with CUDA events; GCUPS = rows * cols / that time.
 
 Correctness gate: ``models/cpu_algs.align_cpu1_st_row`` (the oracle) on
@@ -20,7 +21,7 @@ Prints ONE JSON line: metric, value, unit, vs_baseline, body_gcups,
 body_variant, mfu, peak_share (value over the published int32 bound for
 nw_ag: its 9 operations a cell issue as ``insns_per_cell``, 6 int32
 instructions on sm_90a, as in ``vpu_probe.INSNS_PER_CELL``), card,
-power_limit, and the gate's cost.
+power_limit, the tile, and the gate's cost.
 
 Usage: python -m gpuseqalign_tpu_torch.bench.headline [--n N] [--oracleN N].
 ``main(argv, device=None)`` runs on the card and raises
@@ -39,6 +40,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from ..ops import tuned
 from ..utils.device import card_info, resolve_device
 from .vpu_probe import (INSNS_PER_CELL, INT32_OPS_PER_S, elapsed_s,
                         roofline_body)
@@ -59,9 +61,10 @@ def _padded(seq: np.ndarray, tile: int, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(out).to(dev)
 
 
-def _gate(subst: np.ndarray, seq: np.ndarray, dev: torch.device):
+def _gate(subst: np.ndarray, seq: np.ndarray, dev: torch.device,
+          tile: tuple):
     """(cost, oracle seconds): cpu1_st_row on ``seq`` against itself, and
-    K1 through the registry at the benched tile, which must agree."""
+    K1 through the registry at the benched ``tile``, which must agree."""
     from ..core.registry import get_algorithm_map
     from ..core.types import AlgParams, AlgResult, Status, make_alg_input
     from ..models.cpu_algs import align_cpu1_st_row
@@ -77,7 +80,7 @@ def _gate(subst: np.ndarray, seq: np.ndarray, dev: torch.device):
                          device=str(dev))
     resc = AlgResult()
     stat = get_algorithm_map()["tpu7_pallas_mlsp"].align(
-        AlgParams({"tileBy": [TILE_H], "tileBx": [TILE_W]}), nwc, resc)
+        AlgParams({"tileBy": [tile[0]], "tileBx": [tile[1]]}), nwc, resc)
     if stat != Status.success or resc.align_cost != reso.align_cost:
         raise RuntimeError(f"bench kernel mismatch: {stat!r} "
                            f"{resc.align_cost} vs oracle {reso.align_cost}")
@@ -109,14 +112,15 @@ def main(argv: Optional[List[str]] = None,
     seq = np.asarray(full[:1 + args.n], np.int32)
     n = args.n
 
+    th, tw = tuned.tuned_tile(SPEC, dev, (TILE_H, TILE_W))
     subst_d = torch.from_numpy(np.ascontiguousarray(subst, np.int32)).to(dev)
-    y, x = _padded(seq, TILE_H, dev), _padded(seq, TILE_W, dev)
-    kw = dict(gapo=GAPO, gape=GAPE, adjr=n + 1, adjc=n + 1, tile_h=TILE_H,
-              tile_w=TILE_W, kind=KIND, gap=GAP)
+    y, x = _padded(seq, th, dev), _padded(seq, tw, dev)
+    kw = dict(gapo=GAPO, gape=GAPE, adjr=n + 1, adjc=n + 1, tile_h=th,
+              tile_w=tw, kind=KIND, gap=GAP)
     t = elapsed_s(lambda: mlsp_fill(subst_d, y, x, **kw), dev, M_FILLS)
     gcups = n * n / t / 1e9
 
-    cost, t_oracle = _gate(subst, seq[:1 + args.oracleN], dev)
+    cost, t_oracle = _gate(subst, seq[:1 + args.oracleN], dev, (th, tw))
     oracle_gcups = args.oracleN ** 2 / t_oracle / 1e9
     body = roofline_body(KIND, GAP, device=dev)
     card, power = card_info(dev)
@@ -134,6 +138,7 @@ def main(argv: Optional[List[str]] = None,
         "card": card,
         "power_limit": power,
         "n": n,
+        "tile": f"{th}x{tw}",
         "oracle_n": args.oracleN,
         "cost": cost,
     }

@@ -91,7 +91,8 @@ INT16_LANES = {"i32": 1, "i16x2": 2, "i16x2_dpx": 2}
 GAPO, GAPE = -11, -2
 SEED = 20261017
 LETTERS = 25  # blosum62's alphabet
-# K1's default tile, which probe_gridcost times (strips of 128 rows)
+# The tile probe_gridcost times K1 at: K1's literal default, the one
+# the card's tuned cache overrides (strips of 128 rows)
 TILE_H, TILE_W = 128, 512
 SASS_OPCODES = ("IMNMX", "VIMNMX", "VIADDMNMX", "VIADD", "IADD3", "IMAD",
                 "SEL", "ISETP", "SHF", "LEA", "SHFL", "BAR", "LDS", "STS",

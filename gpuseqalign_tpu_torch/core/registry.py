@@ -16,12 +16,14 @@ Alias mapping (reference -> this port):
   NwAlign_Gpu2_Ml_DiagRow2Pass -> tpu2_xla_rowscan (row max-plus scan, torch
                                     ops on the device)
   NwAlign_Gpu3_Ml_DiagDiag   -> tpu3_pallas_dense  (dense H: the CUDA
-                                    tile-diagonal kernel on the card)
+                                    row-strip kernel's dense entry on the
+                                    card)
   NwAlign_Gpu4_Ml_DiagDiag2Pass -> tpu3_pallas_dense
   NwAlign_Gpu5_Coop_DiagDiag -> tpu3_pallas_dense
   NwAlign_Gpu6_Coop_DiagDiag2Pass -> tpu3_pallas_dense
   NwAlign_Gpu7_Mlsp_DiagDiag -> tpu7_pallas_mlsp   (sparse tile headers: the
-                                    CUDA tile-diagonal kernel on the card)
+                                    CUDA row-strip kernel's pair entry on
+                                    the card)
   NwAlign_Gpu8_Mlsp_DiagDiag -> tpu7_pallas_mlsp
   NwAlign_Gpu9_Mlsp_DiagDiagDiag -> tpu7_pallas_mlsp
 

@@ -25,15 +25,18 @@ from ..core.types import (
 )
 from ..trace.sparse import align_tile, align_tile_full, get_tile_and_elem_ij
 from ..utils.device import resolve_device, synchronize
-from . import mlsp_cuda
+from . import mlsp_cuda, tuned
 
-# Default tile; no tuned cache exists for the card yet.
+# Default tile where the card's tuned cache (``ops/tuned.py``) has none,
+# and always on the CPU.
 TILE_H_DEFAULT, TILE_W_DEFAULT = 128, 512
 
 
 def _mlsp_setup(pr: AlgParams, nw: AlgInput):
-    tile_h = int(pr.get("tileBy", 0) or TILE_H_DEFAULT)
-    tile_w = int(pr.get("tileBx", 0) or TILE_W_DEFAULT)
+    tile_h_def, tile_w_def = tuned.tuned_tile(
+        nw.spec.name, nw.device, (TILE_H_DEFAULT, TILE_W_DEFAULT))
+    tile_h = int(pr.get("tileBy", 0) or tile_h_def)
+    tile_w = int(pr.get("tileBx", 0) or tile_w_def)
     if tile_h < 1 or tile_w < 1:
         return None
     rows = nw.adjrows - 1

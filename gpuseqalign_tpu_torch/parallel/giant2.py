@@ -20,11 +20,12 @@ so D > 1 costs one launch a pass.
 
 Geometry is the JAX package's off-TPU branch, so the sparse layout
 matches its engine tile for tile, padded tile rows included: R, TW, K
-(``tileBy``, ``tileBx``, ``kChains``; 128, 128, 2 by default), KB =
-``passBlocks`` or ``pick_kb``, BL = KB·K, band_cols = ⌈cols / (D·TW)⌉·TW
-and rows_p = n_pass·BL·R, padded with letter 0. The TPU kernel levers
-(``packedx``, ``packedef``, ``rematHdr``, ``subProw``) are accepted and
-ignored, and the TPU's tuned cache has no counterpart.
+(``tileBy``, ``tileBx``, ``kChains``; 128, 128, 2 by default, and on a
+card R and TW from its tuned cache, ``ops/tuned.py``, as the JAX engine
+reads its TPU's), KB = ``passBlocks`` or ``pick_kb``, BL = KB·K,
+band_cols = ⌈cols / (D·TW)⌉·TW and rows_p = n_pass·BL·R, padded with
+letter 0. The TPU kernel levers (``packedx``, ``packedef``, ``rematHdr``,
+``subProw``) are accepted and ignored.
 
 Outputs are the reference sparse layout (``ops/mlsp_kernels._mlsp_store``,
 with the affine F-row / E-column mats and the SW best cell, the global
@@ -46,11 +47,12 @@ from ..core.types import (
     AlgParams,
     AlgResult,
     AlignKind,
+    AlignSpec,
     GapKind,
     NEG_INF_I32,
     Status,
 )
-from ..ops import banded_cuda
+from ..ops import banded_cuda, tuned
 from ..ops.mlsp_cuda import tile_best
 from ..ops.mlsp_kernels import _mlsp_store
 from ..ops.mlsp_plain import edge_col, edge_row
@@ -101,12 +103,22 @@ def pick_kb(n_blocks, K: int, D: int, *, R: int, W: int,
     return best_kb
 
 
-def _tile_params(pr: AlgParams) -> Tuple[int, int, int]:
-    """(R, TW, K): explicit params, else the JAX package's off-TPU
-    defaults 128, 128, 2."""
-    R = int(pr.get("tileBy", 0) or 128)
-    TW = int(pr.get("tileBx", 0) or 128)
-    K = int(pr.get("kChains", 0) or 2)
+def _tile_params(pr: AlgParams, spec: Optional[AlignSpec] = None,
+                 device: Optional[torch.device] = None
+                 ) -> Tuple[int, int, int]:
+    """(R, TW, K): explicit params beat the card's tuned cache (its
+    ``banded`` sub-entry, then the spec's own tile; read for a spec on a
+    CUDA device, and kept only where ``_tile_params_ok`` takes it), which
+    beats the JAX package's off-TPU defaults 128, 128, 2."""
+    r_def, tw_def, k_def = 128, 128, 2
+    if spec is not None and device is not None:
+        r, tw = tuned.tuned_tile(spec.name, device, (r_def, tw_def),
+                                 banded=True)
+        if _tile_params_ok(r, tw, k_def):
+            r_def, tw_def = r, tw
+    R = int(pr.get("tileBy", 0) or r_def)
+    TW = int(pr.get("tileBx", 0) or tw_def)
+    K = int(pr.get("kChains", 0) or k_def)
     return R, TW, K
 
 
@@ -118,11 +130,15 @@ def _tile_params_ok(R: int, TW: int, K: int) -> bool:
 
 
 def band_geometry(pr: AlgParams, rows: Sequence[int],
-                  cols: Sequence[int], D: int
+                  cols: Sequence[int], D: int,
+                  spec: Optional[AlignSpec] = None,
+                  device: Optional[torch.device] = None
                   ) -> Optional[Tuple[int, int, int, int]]:
     """(R, TW, band_cols, BL) for pairs of ``rows`` x ``cols`` residues on
-    D bands, or None for an invalid param combination."""
-    R, TW, K = _tile_params(pr)
+    D bands, or None for an invalid param combination. With ``spec`` and
+    the first band's ``device`` the tile defaults come from the card's
+    tuned cache (``_tile_params``)."""
+    R, TW, K = _tile_params(pr, spec, device)
     if not _tile_params_ok(R, TW, K):
         return None
     W = min(512, TW)
@@ -332,7 +348,8 @@ def align_giant2(pr: AlgParams, nw: AlgInput, res: AlgResult,
 
     sw = res.sw_align
     sw.start()
-    geo = band_geometry(pr, [nw.adjrows - 1], [nw.adjcols - 1], D)
+    geo = band_geometry(pr, [nw.adjrows - 1], [nw.adjcols - 1], D, spec,
+                        mesh.devices[0])
     if geo is None:
         return Status.errorInvalidValue
     R, TW, band_cols, BL = geo
@@ -406,7 +423,8 @@ def align_giant2_stream(pr: AlgParams, inputs: "list[AlgInput]",
         t_ref = now
 
     geo = band_geometry(pr, [nw.adjrows - 1 for nw in inputs],
-                    [nw.adjcols - 1 for nw in inputs], D)
+                        [nw.adjcols - 1 for nw in inputs], D, spec,
+                        mesh.devices[0])
     if geo is None:
         return [Status.errorInvalidValue] * n
     R, TW, band_cols, BL = geo

@@ -13,7 +13,13 @@ import pytest
 import torch
 
 import gpuseqalign_tpu_torch
-from gpuseqalign_tpu_torch.bench import headline, vpu_probe
+from gpuseqalign_tpu_torch.bench import (
+    autotune,
+    fuzz,
+    giant_demo,
+    headline,
+    vpu_probe,
+)
 from gpuseqalign_tpu_torch.bench.cli import main
 from gpuseqalign_tpu_torch.core.registry import get_algorithm_map
 from gpuseqalign_tpu_torch.core.types import (
@@ -72,7 +78,8 @@ print(json.dumps({"mods": mods, "loaded": sorted(sys.modules)}))
                 "parallel.multihost", "ops.probe_plain", "ops.probe_cuda",
                 "bench.vpu_probe", "bench.headline", "ops.wavefront",
                 "ops.wavefront_cuda", "ops.wavefront_plain",
-                "ops.strip_cuda", "ops.tiny_cuda"):
+                "ops.strip_cuda", "ops.tiny_cuda", "ops.tuned",
+                "bench.fuzz", "bench.autotune", "bench.giant_demo"):
         assert f"gpuseqalign_tpu_torch.{mod}" in got["mods"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
@@ -83,7 +90,8 @@ def no_cuda():
         pytest.skip("a CUDA device is present")
 
 
-@pytest.mark.parametrize("entry", ["cli", "vpu_probe", "headline"])
+@pytest.mark.parametrize("entry", ["cli", "vpu_probe", "headline", "fuzz",
+                                   "autotune", "giant_demo"])
 def test_main_without_device_raises_without_cuda(tmp_path, no_cuda, entry):
     params = tmp_path / "params.json"
     params.write_text(json.dumps({"cpu1_st_row": {}}))
@@ -96,9 +104,19 @@ def test_main_without_device_raises_without_cuda(tmp_path, no_cuda, entry):
         ],
         "vpu_probe": ["all"],
         "headline": ["--n", "300", "--oracleN", "64"],
+        "fuzz": ["--cases", "1", "--seconds", "0"],
+        "autotune": [
+            "--algParamPath", str(params),
+            "--seqPath", os.path.join(RESRC, "seq_generated.fa"),
+            "--substPath", os.path.join(RESRC, "subst.json"),
+            "--pair", "len31", "len33",
+        ],
+        "giant_demo": ["300", "nw_ag"],
     }[entry]
     entry_main = {"cli": main, "vpu_probe": vpu_probe.main,
-                  "headline": headline.main}[entry]
+                  "headline": headline.main, "fuzz": fuzz.main,
+                  "autotune": autotune.main,
+                  "giant_demo": giant_demo.main}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_main(argv)
 
