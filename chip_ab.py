@@ -18,9 +18,14 @@ pair_generated_1 nw_ag buckets), and the v1 fills K2
 (``tiny_scores`` at the tree's default schedule) on the synth_16384
 512 x 512 bucket for every spec, beside ``small_pg1_nw_ag``: the engine's
 call (``bucket_scores``, whichever kernel it picks) summed over the
-pair_generated_1 nw_ag buckets shorter than TILE_FILL_MIN_ROWS. KERNELS,
-a comma-separated subset of K1,K2,K3,K4,K5,K6,K7, times those alone. Run
-the trees in turns (A, B, B, A): two calls may land on two cards.
+pair_generated_1 nw_ag buckets shorter than TILE_FILL_MIN_ROWS. K8 is
+the step-body yardstick: for every spec, the tree's own
+``bench.vpu_probe.roofline_body`` (its probe kernel K8b or K8c, swept
+over the tree's own grid choices), whose winner's GCUPS, strips a block,
+rows a strip and blocks a SM it prints. KERNELS, a comma-separated
+subset of K1,K2,K3,K4,K5,K6,K7,K8, times those alone (K8 only when
+named: its sweep takes seconds). Run the trees in turns (A, B, B, A):
+two calls may land on two cards.
 """
 
 import json
@@ -65,6 +70,17 @@ def main() -> int:
     res = {"tree": sys.argv[2]}
 
     dev = torch.device("cuda")
+    if "K8" in keys:
+        from gpuseqalign_tpu_torch.bench import vpu_probe
+
+        for kind, gap in (("nw", "linear"), ("sw", "linear"),
+                          ("nw", "affine"), ("sw", "affine")):
+            r = vpu_probe.roofline_body(kind, gap, device=dev)
+            spec = vpu_probe.spec_name(kind, gap)
+            res[f"K8_{spec}"] = r["gcups"]
+            res[f"K8_{spec}_grid"] = dict(
+                K=r["K"], rows=r.get("rows", r["threads"]),
+                blocks_per_sm=r.get("blocks_per_sm"), blocks=r["blocks"])
     pairs = throughput.file_pairs(cs.SEQS, cs.THROUGHPUT_RUNS[0][1][1],
                                   subst_data.letter_map)
     if "K6" in keys:

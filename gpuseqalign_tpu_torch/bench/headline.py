@@ -14,13 +14,16 @@ the ``--oracleN`` prefix of the pair gives the cost that K1, through the
 registry's ``tpu7_pallas_mlsp`` at the same tile, must reproduce, or the
 run raises; its speed on this host gives ``vs_baseline``. In the same
 process ``vpu_probe.roofline_body("nw", "affine")`` measures the fastest
-faithful nw_ag step body, and ``mfu`` = value / body_gcups. A failed probe
-or gate fails the run: nothing recorded stands in for a measurement.
+faithful nw_ag step body (the fills' warp row strip, at its best rows a
+lane R and strips a block K, which ``body_variant`` names), and ``mfu`` =
+value / body_gcups. A failed probe or gate fails the run: nothing
+recorded stands in for a measurement.
 
 Prints ONE JSON line: metric, value, unit, vs_baseline, body_gcups,
-body_variant, mfu, peak_share (value over the published int32 bound for
-nw_ag: its 9 operations a cell issue as ``insns_per_cell``, 6 int32
-instructions on sm_90a, as in ``vpu_probe.INSNS_PER_CELL``), card,
+body_variant, mfu, peak_share (value over the card's instruction issue
+rate, ``vpu_probe.ISSUE_INSNS_PER_S``, for nw_ag: its 9 operations a
+cell issue as ``insns_per_cell``, 6 int32 instructions on sm_90a, as in
+``vpu_probe.INSNS_PER_CELL``), card,
 power_limit, the tile, and the gate's cost.
 
 Usage: python -m gpuseqalign_tpu_torch.bench.headline [--n N] [--oracleN N].
@@ -42,7 +45,7 @@ import torch
 
 from ..ops import tuned
 from ..utils.device import card_info, resolve_device
-from .vpu_probe import (INSNS_PER_CELL, INT32_OPS_PER_S, elapsed_s,
+from .vpu_probe import (INSNS_PER_CELL, ISSUE_INSNS_PER_S, elapsed_s,
                         roofline_body)
 
 RESRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -130,10 +133,10 @@ def main(argv: Optional[List[str]] = None,
         "unit": "GCUPS",
         "vs_baseline": gcups / oracle_gcups,
         "body_gcups": body["gcups"],
-        "body_variant": f"{body['variant']} K{body['K']}",
+        "body_variant": f"{body['variant']} R{body['R']} K{body['K']}",
         "mfu": gcups / body["gcups"],
         "peak_share": (gcups * 1e9 * INSNS_PER_CELL[SPEC]
-                       / INT32_OPS_PER_S if dev.type == "cuda" else None),
+                       / ISSUE_INSNS_PER_S if dev.type == "cuda" else None),
         "insns_per_cell": INSNS_PER_CELL[SPEC],
         "card": card,
         "power_limit": power,

@@ -6,27 +6,32 @@ Every probe runs a kernel of ``ops/csrc/probe.cu`` (wrappers in
 chain's latency (ns per chain step), and on the whole card (SM count x
 resident blocks a SM), whose rate is the card's (GCUPS or Gops). Times
 follow the two-point recipe, (T(M2) - T(M1)) / (M2 - M1) over M iterations
-or columns, timed with CUDA events, so launch overhead and each strip's
-ramp drop out. Each rate is also given as a share of the published int32
-bound, 132 SMs x 64 int32 lanes x 1.98 GHz (PERF.md §2), in one unit:
-the int32 instructions the card issues, a step of each elementwise body
-(``BODY_INSNS``, ``INT16_INSNS``) and a cell of each DP recurrence
-(``INSNS_PER_CELL``).
+or columns, timed with CUDA events after a head start of the card (so the
+reps run back to back), so launch overhead and each strip's ramp drop
+out. Each rate is also given as a share of the card's instruction issue
+rate, 132 SMs x 128 lanes x 1.98 GHz (``ISSUE_INSNS_PER_S``, PERF.md
+§2), in one unit: the instructions the card issues, a step of each
+elementwise body (``BODY_INSNS``, ``INT16_INSNS``) and a cell of each DP
+recurrence (``INSNS_PER_CELL``).
 
   ops              per-body costs: int32 max+add (and the same in one DPX
                    __viaddmax_s32), a select, a shift+add, a warp rotation
                    by one lane (__shfl_sync) and by one warp (shared memory
-                   and __syncthreads, K1's cross-warp hand-off); 12 chains
-                   a thread, and the latency of one chain
-  skeleton         K1's nw_lg step with constant scores and no header I/O,
-                   at K = 1..8 strips a block
+                   and __syncthreads); 12 chains a thread, and the latency
+                   of one chain
+  skeleton         the fills' nw_lg step, the warp row strip (one warp a
+                   strip of 32·R rows, R rows a lane, H passed down by
+                   __shfl_up_sync, no block barrier), with constant scores
+                   and no header I/O, at K = 1..8 strips (warps) a block
   skeleton_affine  the same for nw_ag
-  fullstep         K1's faithful nw_lg step with ablation variants (base,
-                   nolookup, noheader, onewarp, sw)
+  fullstep         the fills' faithful nw_lg warp strip over real letters
+                   with ablation variants (base, nolookup, noheader,
+                   onewarp: strips of 32 rows, sw)
   fullstep_affine  the same for the Gotoh body
   int16            int32 against packed int16x2 add+max, and DPX
   roofline         roofline_body for the four specs: the fastest faithful
-                   body (base or sw) over a sweep of K and blocks a SM
+                   body (base or sw) over a sweep of the rows a lane R,
+                   the strips (warps) a block K and the blocks a SM
   gridcost         K1 (row strips) at 23728^2 against the same launch
                    with the DP cells skipped, and one strip alone
                    (``--gap``): its machinery share, the ns of a strip
@@ -58,13 +63,18 @@ import numpy as np
 import torch
 
 from ..ops import probe_cuda
-from ..ops.probe_cuda import CHAIN_NCH, STRIP_K, kernel_info
+from ..ops.probe_cuda import CHAIN_NCH, STRIP_K, STRIP_ROWS, kernel_info
 from ..ops.probe_plain import CHAIN_BODIES, INT16_CHAINS, INT16_MODES, VARIANTS
 from ..utils.device import card_info, resolve_device
 
-# The published H100 SXM int32 issue rate: 132 SMs x 64 int32 lanes x
-# 1.98 GHz (a quarter of the 67 TFLOP/s FP32 figure).
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The H100 SXM's instruction issue rate: 132 SMs x 4 schedulers x 32
+# lanes x 1.98 GHz, one warp instruction a clock a scheduler, whatever its
+# pipe; half the published 67 TFLOP/s FP32 figure, which counts an FMA as
+# two flops. No kernel can issue faster. The int32 pipe alone takes half
+# of it (64 lanes an SM), but VIADD and IMAD issue on the FMA pipe too, so
+# a mix of them passes 64 lanes an SM (the strip skeletons read up to
+# 126% of that rate on the card).
+ISSUE_INSNS_PER_S = 132 * 128 * 1.98e9
 # int32 instructions a DP cell of the recurrence issues on sm_90a. Its
 # operations (linear gap: add diag, max up/left, add gap, max = 4; affine:
 # F and E (max, 2 adds each) and H (add, 2 max) = 9; SW adds the zero clamp
@@ -79,7 +89,7 @@ INSNS_PER_CELL = {"nw_lg": 3, "sw_lg": 4, "nw_ag": 6, "sw_ag": 7}
 # maxadd2 fuse into one DPX VIADDMNMX, as viaddmax asks; the select is one
 # SEL (its compare is hoisted); the shift and add one LEA; one SHFL; a
 # shared store and load (and a barrier an iteration). Counting the source's
-# two operations for maxadd2 read 195% of the int32 bound: an instruction
+# two operations for maxadd2 read 195% of the int32 pipe: an instruction
 # count, not an operation count, is what the card issues.
 BODY_INSNS = {"maxadd2": 1, "viaddmax": 1, "select": 1, "shift_add2": 1,
               "shfl": 1, "xwarp": 2}
@@ -108,17 +118,20 @@ class Sizes:
     chain_iters: Tuple[int, int]   # M1, M2 iterations of a chain body
     strip_iters: Tuple[int, int]   # M1, M2 columns of a strip
     chain_threads: int             # threads a block of the chain bodies
-    strip_threads: int             # rows a strip (K1's tile height)
+    strip_rows: int                # rows a strip (K1's tile height)
     reps: int                      # timed runs at each M
     skeleton_ks: Tuple[int, ...]
     fullstep_ks: Tuple[int, ...]
-    blocks_per_sm: Tuple[int, ...]  # roofline_body's sweep
+    # roofline_body's sweep: rows a strip (32·R) and blocks a SM
+    roofline_rows: Tuple[int, ...]
+    blocks_per_sm: Tuple[int, ...]
     cpu_blocks: int = 0            # the "card" grid on the CPU
 
 
 CARD = Sizes((2000, 20000), (512, 2048), 256, 128, 3, STRIP_K, STRIP_K,
-             (1, 2, 4, 8, 16))
-CPU = Sizes((2, 6), (2, 4), 64, 64, 1, (1, 2), (1, 2), (1,), cpu_blocks=2)
+             STRIP_ROWS, (1, 2, 4, 8, 16))
+CPU = Sizes((2, 6), (2, 4), 64, 64, 1, (1, 2), (1, 2), (32, 64), (1,),
+            cpu_blocks=2)
 
 
 def sizes(dev: torch.device) -> Sizes:
@@ -154,11 +167,18 @@ def elapsed_s(fn: Callable[[], object], dev: torch.device, reps: int,
     return start.elapsed_time(end) / 1e3 / reps
 
 
+# The card's head start before each timed run of _time_pair: the host
+# queues the reps while the card sleeps, so that a call shorter than the
+# wrapper's host time (a strip of M1 columns on a small grid) is timed on
+# the card and not at the host's pace, which would shrink T(M2) - T(M1).
+HEAD_START_S = 0.002
+
+
 def _time_pair(run: Callable[[int], object], m1: int, m2: int,
                dev: torch.device, reps: int) -> float:
     """Seconds per unit of M: (T(M2) - T(M1)) / (M2 - M1)."""
-    t1 = elapsed_s(lambda: run(m1), dev, reps)
-    t2 = elapsed_s(lambda: run(m2), dev, reps)
+    t1 = elapsed_s(lambda: run(m1), dev, reps, HEAD_START_S)
+    t2 = elapsed_s(lambda: run(m2), dev, reps, HEAD_START_S)
     return (t2 - t1) / (m2 - m1)
 
 
@@ -167,10 +187,11 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def card_grid(dev: torch.device, kernel: str, sel: str, K: int, nt: int,
-          bps: Optional[int] = None) -> Tuple[int, Dict[str, int]]:
+              bps: Optional[int] = None) -> Tuple[int, Dict[str, int]]:
     """Blocks that fill the card (SM count x ``bps``, by default the
-    resident maximum) and the kernel's resources; on the CPU the small
-    grid of ``CPU``."""
+    resident maximum) and the kernel's resources (``kernel_info``: nt is
+    the threads a block, or the rows a strip of a strip kernel); on the
+    CPU the small grid of ``CPU``."""
     if dev.type != "cuda":
         return CPU.cpu_blocks, {}
     info = kernel_info(kernel, sel, K, nt)
@@ -179,9 +200,9 @@ def card_grid(dev: torch.device, kernel: str, sel: str, K: int, nt: int,
 
 
 def _share(ops_per_s: float, dev: torch.device) -> Optional[float]:
-    """``ops_per_s`` over the published int32 bound; None on the CPU,
-    where the bound of the card means nothing."""
-    return ops_per_s / INT32_OPS_PER_S if dev.type == "cuda" else None
+    """``ops_per_s`` over the card's issue rate; None on the CPU, where
+    the bound of the card means nothing."""
+    return ops_per_s / ISSUE_INSNS_PER_S if dev.type == "cuda" else None
 
 
 def _rng(tag: str) -> np.random.Generator:
@@ -214,6 +235,12 @@ def strip_inputs(blocks: int, K: int, nt: int, iters: int,
                  for v in (subst, y, x, a))
 
 
+def _first_blocks(ins, nb: int):
+    """The inputs of ``strip_inputs`` cut to their first ``nb`` blocks."""
+    subst, y, x, a = ins
+    return subst, y[:nb], x, a[:nb]
+
+
 def _rates(run_on: Callable[[int], Callable[[int], object]], blocks: int,
            iters: Tuple[int, int], dev: torch.device, reps: int
            ) -> Tuple[float, float]:
@@ -225,7 +252,7 @@ def _rates(run_on: Callable[[int], Callable[[int], object]], blocks: int,
 def probe_ops(device=None) -> dict:
     """Per-body costs, 12 chains a thread: ns per chain step and per
     instruction on one block, the card's instructions a second and share
-    of the int32 bound, and one chain's latency a step (one block, one
+    of the issue rate, and one chain's latency a step (one block, one
     chain a thread)."""
     dev = resolve_device(device)
     sz = sizes(dev)
@@ -254,11 +281,12 @@ def probe_ops(device=None) -> dict:
 
 def probe_skeleton(affine: bool, ks: Optional[Sequence[int]] = None,
                    device=None) -> dict:
-    """K1's step with constant scores and no header I/O at K strips a
-    block: ns per chain step (one block) and the card's GCUPS."""
+    """The warp strip's step with constant scores and no header I/O at K
+    strips (warps) a block of ``sizes().strip_rows`` rows: ns a step of
+    one block (a warp's step of its R rows) and the card's GCUPS."""
     dev = resolve_device(device)
     sz = sizes(dev)
-    nt = sz.strip_threads
+    nt = sz.strip_rows
     body = "skeleton_nw_ag" if affine else "skeleton_nw_lg"
     gape = GAPE if affine else 0
     spec = "nw_ag" if affine else "nw_lg"
@@ -273,81 +301,105 @@ def probe_skeleton(affine: bool, ks: Optional[Sequence[int]] = None,
         dt1, dtc = _rates(run_on, blocks, sz.strip_iters, dev, sz.reps)
         cells = blocks * nt * K / dtc
         res[f"K{K}"] = {
-            "ns_per_chain_step": dt1 * 1e9 / K, "gcups": cells / 1e9,
+            "ns_per_step": dt1 * 1e9, "gcups": cells / 1e9,
             "peak_share": _share(cells * INSNS_PER_CELL[spec], dev),
-            "blocks": blocks, "threads": nt, **info,
+            "R": nt // 32, "blocks": blocks, "threads": 32 * K, **info,
         }
     return res
 
 
 def _fullstep_rate(variant: str, gap: str, K: int, dev: torch.device,
-                   bps: Optional[int] = None, one_block: bool = True
-                   ) -> dict:
+                   bps: Optional[int] = None, one_block: bool = True,
+                   rows: Optional[int] = None, ins=None) -> dict:
+    """GCUPS of ``variant`` on the card's grid at K strips a block of
+    ``rows`` rows (``bps`` blocks a SM, by default the resident maximum);
+    with ``one_block`` also ns a step of one block. ``ins``: inputs
+    ``{M: strip_inputs(...)}`` of at least the grid's blocks, else made
+    here."""
     sz = sizes(dev)
     affine = gap == "affine"
-    nt = 32 if variant == "onewarp" else sz.strip_threads
+    nt = 32 if variant == "onewarp" else rows or sz.strip_rows
     kernel = "probe_fullstep_affine" if affine else "probe_fullstep"
     blocks, info = card_grid(dev, kernel, variant, K, nt, bps)
     gape = GAPE if affine else 0
     spec = spec_name("sw" if variant == "sw" else "nw", gap)
+    if ins is None:
+        ins = {m: strip_inputs(blocks, K, nt, m, dev, variant)
+               for m in sz.strip_iters}
 
     def run_on(nb):
-        ins = {m: strip_inputs(nb, K, nt, m, dev, variant)
-               for m in sz.strip_iters}
+        cut = {m: _first_blocks(v, nb) for m, v in ins.items()}
         return lambda m: probe_cuda.probe_fullstep(
-            *ins[m], GAPO, gape, gap=gap, variant=variant)
+            *cut[m], GAPO, gape, gap=gap, variant=variant)
 
     dtc = _time_pair(run_on(blocks), *sz.strip_iters, dev, sz.reps)
     cells = blocks * nt * K / dtc
-    out = {"K": K, "gcups": cells / 1e9,
+    out = {"K": K, "R": nt // 32, "rows": nt,
+           "warps_per_sm": (K * info["blocks_per_sm"] if info else None),
+           "gcups": cells / 1e9,
            "peak_share": _share(cells * INSNS_PER_CELL[spec], dev),
-           "blocks": blocks, "threads": nt, **info}
+           "blocks": blocks, "threads": 32 * K, **info}
     if one_block:
         dt1 = _time_pair(run_on(1), *sz.strip_iters, dev, sz.reps)
-        out["ns_per_chain_step"] = dt1 * 1e9 / K
+        out["ns_per_step"] = dt1 * 1e9
     return out
 
 
 def probe_fullstep(K: int = 4, variants: Optional[Sequence[str]] = None,
-                   gap: str = "linear", device=None) -> dict:
-    """K1's faithful nw_lg (``gap`` "linear") or nw_ag step at K strips a
-    block, one entry per ablation variant: base, nolookup (a constant
-    score a row), noheader (no right-column or bottom-row stores),
-    onewarp (32-row strips: no cross-warp slot, no barrier), sw."""
+                   gap: str = "linear", device=None,
+                   rows: Optional[int] = None) -> dict:
+    """The fills' faithful nw_lg (``gap`` "linear") or nw_ag warp strip
+    at K strips (warps) a block of ``rows`` rows (default
+    ``sizes().strip_rows``), one entry per ablation variant: base,
+    nolookup (a constant score a row), noheader (no bottom-row stores),
+    onewarp (strips of 32 rows, one a lane), sw."""
     dev = resolve_device(device)
-    return {v: _fullstep_rate(v, gap, K, dev) for v in variants or VARIANTS}
+    return {v: _fullstep_rate(v, gap, K, dev, rows=rows)
+            for v in variants or VARIANTS}
 
 
-def probe_fullstep_affine(K: int = 6, variants=None, device=None) -> dict:
+def probe_fullstep_affine(K: int = 6, variants=None, device=None,
+                          rows: Optional[int] = None) -> dict:
     """probe_fullstep for the Gotoh (nw_ag / sw_ag) body."""
-    return probe_fullstep(K, variants, "affine", device)
+    return probe_fullstep(K, variants, "affine", device, rows)
 
 
 def roofline_body(kind: str, gap: str, K: Optional[int] = None,
                   device=None) -> dict:
     """The spec's fastest faithful step body measured now, in the calling
-    process: ``base`` (NW) or ``sw`` over a sweep of K (all of STRIP_K
-    unless ``K`` is given) and blocks a SM, at its best card GCUPS."""
+    process: ``base`` (NW) or ``sw``, the warp strip, over a sweep of the
+    rows a lane R (strips of 32·R rows, ``sizes().roofline_rows``), the
+    strips (warps) a block K (all of
+    ``sizes().fullstep_ks`` unless ``K`` is given) and the blocks a SM, at
+    its best card GCUPS. Returns the winner's R, K, warps a SM, blocks,
+    GCUPS and ns a step of one block, and every reading of the sweep."""
     dev = resolve_device(device)
     sz = sizes(dev)
     variant = "sw" if kind == "sw" else "base"
     kernel = "probe_fullstep_affine" if gap == "affine" else "probe_fullstep"
-    sweep, best = {}, None
-    for k in [K] if K else sz.fullstep_ks:
-        bpss = [None]
-        if dev.type == "cuda":
-            most = kernel_info(kernel, variant, k, sz.strip_threads
-                               )["blocks_per_sm"]
-            bpss = sorted({b for b in sz.blocks_per_sm if b < most} | {most})
-        for bps in bpss:
-            r = _fullstep_rate(variant, gap, k, dev, bps, one_block=False)
-            sweep[f"K{k}_b{r.get('blocks_per_sm', 0)}"] = r["gcups"]
-            if best is None or r["gcups"] > best["gcups"]:
-                best = r
-    ns = _fullstep_rate(variant, gap, best["K"], dev, best.get(
-        "blocks_per_sm"))["ns_per_chain_step"]
+    sweep, best, best_ins = {}, None, None
+    for nt in sz.roofline_rows:
+        for k in [K] if K else sz.fullstep_ks:
+            bpss = [None]
+            if dev.type == "cuda":
+                most = kernel_info(kernel, variant, k, nt)["blocks_per_sm"]
+                bpss = sorted({b for b in sz.blocks_per_sm if b < most}
+                              | {most})
+            nb = card_grid(dev, kernel, variant, k, nt, bpss[-1])[0]
+            ins = {m: strip_inputs(nb, k, nt, m, dev, variant)
+                   for m in sz.strip_iters}
+            for bps in bpss:
+                r = _fullstep_rate(variant, gap, k, dev, bps,
+                                   one_block=False, rows=nt, ins=ins)
+                sweep[f"R{nt // 32}_K{k}_b{r.get('blocks_per_sm', 0)}"] = (
+                    r["gcups"])
+                if best is None or r["gcups"] > best["gcups"]:
+                    best, best_ins = r, ins
+    ns = _fullstep_rate(variant, gap, best["K"], dev,
+                        best.get("blocks_per_sm"), rows=best["rows"],
+                        ins=best_ins)["ns_per_step"]
     return {"spec": spec_name(kind, gap), "variant": variant, **best,
-            "ns_per_chain_step": ns, "sweep": sweep}
+            "ns_per_step": ns, "sweep": sweep}
 
 
 def probe_int16(device=None) -> dict:
@@ -444,10 +496,31 @@ def _cuda_bin(tool: str) -> str:
     return path
 
 
-def sass_summary() -> dict:
+def _hot_loop(insns: List[Tuple[int, str, Optional[int]]]) -> dict:
+    """The largest innermost loop of one kernel's SASS: ``insns`` are its
+    (address, opcode, backward-or-forward branch target or None); returns
+    the loop's instruction count and the count of each opcode (base
+    name) in it, or {} when the kernel has no loop."""
+    loops = [(t, a) for a, _, t in insns if t is not None and t <= a]
+    inner = [lp for lp in loops if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    if not inner:
+        return {}
+    lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
+    ops: Dict[str, int] = {}
+    for a, op, _ in insns:
+        if lo <= a <= hi:
+            ops[op] = ops.get(op, 0) + 1
+    return {"insns": sum(ops.values()), "opcodes": ops}
+
+
+def sass_summary(keep_text: bool = False) -> dict:
     """Per probe kernel of the built library: registers, spill bytes and
-    resident blocks a SM (``kernel_info``), and the count of each of
-    ``SASS_OPCODES`` (the base name, before the first '.') in its SASS."""
+    resident blocks a SM (``kernel_info``), the count of each of
+    ``SASS_OPCODES`` (the base name, before the first '.') in its SASS,
+    and for the strip kernels the opcodes of the hot loop (``_hot_loop``:
+    the chunk of steps without selects, unrolled). ``keep_text`` adds the
+    strip kernels' SASS as text under "strip_sass"."""
     from ..ops import build
 
     build.build_all(["probe"])
@@ -455,16 +528,32 @@ def sass_summary() -> dict:
                            build.so_path("probe")], capture_output=True,
                           text=True, check=True).stdout
     counts: Dict[str, Dict[str, int]] = {}
+    insns: Dict[str, List[Tuple[int, str, Optional[int]]]] = {}
+    text: List[str] = []
     current = None
     for line in dump.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            current = counts.setdefault(m.group(1), {})
+            current = m.group(1)
+            counts[current], insns[current] = {}, []
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
-                     line)
-        if m and current is not None and m.group(1) in SASS_OPCODES:
-            current[m.group(1)] = current.get(m.group(1), 0) + 1
+        if current is None:
+            continue
+        if "strip_kernel" in current:
+            text.append(f"{current}\t{line}")
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z0-9]+)\S*\s*(.*)", line)
+        if not m:
+            continue
+        op = m.group(2)
+        if op in SASS_OPCODES:
+            counts[current][op] = counts[current].get(op, 0) + 1
+        # cuobjdump prints a branch's target as an address.
+        t = re.search(r"0x([0-9a-f]+)", m.group(3)) if op == "BRA" else None
+        insns[current].append((int(m.group(1), 16), op,
+                               int(t.group(1), 16) if t else None))
+    hot = {fn: _hot_loop(ins) for fn, ins in insns.items()
+           if "strip_kernel" in fn}
     names = list(counts)
     try:
         demangled = subprocess.run(
@@ -472,19 +561,28 @@ def sass_summary() -> dict:
             capture_output=True, text=True, check=True).stdout.splitlines()
     except (RuntimeError, subprocess.CalledProcessError):
         demangled = names
+    nice = dict(zip(names, demangled))
     resources = {}
-    for kernel, sels, ks, nt in (
-            ("probe_chain", CHAIN_BODIES[:6], CHAIN_NCH, CARD.chain_threads),
-            ("probe_chain", CHAIN_BODIES[6:], STRIP_K, CARD.strip_threads),
-            ("probe_fullstep", VARIANTS, STRIP_K, CARD.strip_threads),
-            ("probe_fullstep_affine", VARIANTS, STRIP_K, CARD.strip_threads),
-            ("probe_int16", INT16_MODES, (0,), CARD.chain_threads)):
+    for kernel, sels, ks, nts in (
+            ("probe_chain", CHAIN_BODIES[:6], CHAIN_NCH,
+             (CARD.chain_threads,)),
+            ("probe_chain", CHAIN_BODIES[6:], STRIP_K, STRIP_ROWS),
+            ("probe_fullstep", VARIANTS, STRIP_K, STRIP_ROWS),
+            ("probe_fullstep_affine", VARIANTS, STRIP_K, STRIP_ROWS),
+            ("probe_int16", INT16_MODES, (0,), (CARD.chain_threads,))):
         for sel in sels:
-            for k in ks:
-                resources[f"{kernel}/{sel}/K{k}"] = kernel_info(
-                    kernel, sel, k, 32 if sel == "onewarp" else nt)
-    return {"resources": resources,
-            "opcodes": dict(zip(demangled, counts.values()))}
+            for nt in (32,) if sel == "onewarp" else nts:
+                for k in ks:
+                    name = f"{kernel}/{sel}/K{k}"
+                    if nts is STRIP_ROWS:
+                        name += f"/R{nt // 32}"
+                    resources[name] = kernel_info(kernel, sel, k, nt)
+    out = {"resources": resources,
+           "opcodes": dict(zip(demangled, counts.values())),
+           "hot_loop": {nice.get(k, k): v for k, v in hot.items()}}
+    if keep_text:
+        out["strip_sass"] = "\n".join(text)
+    return out
 
 
 def main(argv: Optional[List[str]] = None,
@@ -496,8 +594,8 @@ def main(argv: Optional[List[str]] = None,
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("which", nargs="?", default="all", choices=probes + ("all",))
     ap.add_argument("--K", type=int, default=0,
-                    help="strips a block of fullstep (default 4, affine 6) "
-                         "and roofline (default: the sweep)")
+                    help="strips (warps) a block of fullstep (default 4, "
+                         "affine 6) and roofline (default: the sweep)")
     ap.add_argument("--variants", default="",
                     help="comma-separated fullstep variants (default all)")
     ap.add_argument("--n", type=int, default=23728, help="gridcost's n")

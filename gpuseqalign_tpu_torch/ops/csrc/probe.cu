@@ -16,37 +16,56 @@
 // in a stored output) and a rate is never read off a wrong computation.
 // The TPU probes ran one (16, 128) block on one core and carried the DP
 // by lane and sublane rolls; here the Hopper primitive that plays each
-// TPU primitive's role is timed instead:
+// TPU primitive's role is timed instead, and the DP step is the one the
+// port's fills run (strip_fill.cu, mlsp_tiny.cu), not the TPU block's:
 //
 //   * probe_chain: each thread holds NCH independent int32 chains and runs
 //     `iters` iterations of one body (kMaxAdd2 max(st + a, a + 7); the
 //     same through DPX __viaddmax_s32; a > 0 ? st : a; (st >> 2) + a; a warp
 //     rotation by one lane with __shfl_sync in place of the lane roll; a
 //     rotation by one warp through a double-buffered shared-memory slot
-//     and __syncthreads in place of the sublane roll, K1's cross-warp
-//     hand-off), then stores the max over its chains. The two skeleton
-//     bodies are the step of K1's first kernel (a block a tile, a
-//     thread a row, one block barrier a step) with the substitution
-//     score replaced by the input and no header I/O: thread t is DP row t + 1 of a strip of blockDim
-//     rows and `iters` columns with the analytic NW edge, each chain an
-//     independent strip (chain k scores a + k), H (and F) passed down by
-//     __shfl_up_sync and the cross-warp slot.
-//   * probe_fullstep / probe_fullstep_affine: K1's faithful nw_lg/sw_lg
-//     and nw_ag/sw_ag step over real letters — the shared-memory
-//     substitution row lookup srow[x[j]], the max/add recurrence, the SW
-//     clamp with its best capture, and the right-column and bottom-row
-//     stores — K independent strips per block, with ablation variants as
-//     template flags (no lookup, no header stores, one warp and so no
-//     cross-warp slot or barrier, the SW body).
+//     and __syncthreads in place of the sublane roll), then stores the max
+//     over its chains. The two skeleton bodies are the warp strip below
+//     with the substitution score replaced by the input and no header
+//     I/O: strip k of a block scores a + k, and the max over the block's
+//     strips of each row's H at the last column is stored.
+//   * probe_fullstep / probe_fullstep_affine: the fills' faithful nw_lg /
+//     sw_lg and nw_ag / sw_ag step over real letters, the warp row strip:
+//       - One warp a strip of 32*R rows and `iters` columns, K strips (K
+//         warps) a block. Lane l holds rows l*R+1 .. l*R+R; at step t it
+//         takes column t + 1 - l for its R rows, one dependent chain, and
+//         H (and F) pass down from lane to lane by __shfl_up_sync. The
+//         analytic NW edge gives row 0 (lane 0) and column 0.
+//       - No block barrier and no cross-warp slot in the step loop: the
+//         one __syncthreads follows the load of the substitution matrix
+//         into shared memory, once a block.
+//       - Column letters as K6 reads them: the warp loads 32 letters a
+//         chunk of 32 steps, one a lane, one chunk ahead, into a window of
+//         64 in its shared memory, which every lane reads at a fixed
+//         offset a step; a lane's R row letters, pre-multiplied by S, sit
+//         in registers, and each cell looks its score up in the shared
+//         substitution matrix (s_subst[srow + x], as the fills do).
+//       - Steps run in chunks of 32. A chunk in which every lane's column
+//         lies in 1..iters runs a copy of the step without the selects
+//         that keep a row's state outside its columns.
+//       - Lane 31 holds the strip's bottom row: it stages H (and F) of it
+//         in shared memory each step, and the warp stores 32 columns a
+//         chunk, coalesced. H (and E) of the last column, and for SW each
+//         row's first maximum (strict > as the column rises), are stored
+//         once, after the last step.
+//     Ablation variants are template flags: no lookup (the score a + k),
+//     no header stores, one warp (strips of 32 rows, R = 1), the SW body.
 //   * probe_int16: twelve add+max chains in int32, in packed int16x2
 //     (__vadd2, __vmaxs2) and in DPX __viaddmax_s16x2. Halfwords wrap.
 //
-// What bounds them: int32 issue (operations). The loops touch device
-// memory only for the fullstep's column letters (L1 hits: every block
-// reads the same K rows of letters) and its header stores (a few words a
-// step), so the rate read is the step body's issue and latency. The grid
-// is the caller's: one block measures the chain's latency, SM count x
-// blocks per SM measures the card.
+// What bounds them: instruction issue (operations; one warp instruction a
+// clock a scheduler, bench/vpu_probe.py::ISSUE_INSNS_PER_S). For the
+// strips that is 3/4/6/7 SASS instructions a cell (nw_lg / sw_lg / nw_ag /
+// sw_ag, bench/vpu_probe.py::INSNS_PER_CELL) over every cell of every strip; the
+// bytes they move (the letters, the headers, the last column) are well
+// under that bound. The chains touch device memory only for their input
+// and one output word a thread. The grid is the caller's: one block
+// measures a step's latency, SM count x blocks per SM measures the card.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -54,7 +73,10 @@
 namespace {
 
 constexpr int kNegInf = -(1 << 30);
+// Threads a block at most, and rows a strip at most (32 R, R <= 8).
 constexpr int kMaxThreads = 256;
+// Words of a warp's window of column letters: two chunks of 32.
+constexpr int kWin = 64;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr size_t kSmemLimit = 48 * 1024;
 
@@ -125,155 +147,215 @@ struct StripArgs {
   const int* subst;  // LOOKUP: (S, S)
   const int* y;      // LOOKUP: (blocks, K, nt) row letters
   const int* x;      // LOOKUP: (K, 1 + iters) column letters, x[k][0] unused
-  const int* a;      // !LOOKUP: (blocks, nt); chain k of row t scores a + k
+  const int* a;      // !LOOKUP: (blocks, nt); strip k of row i scores a + k
   int S, gapo, gape, iters;
   int* hcol;  // (blocks, K, nt): H[i, iters], the strip's right column
   int* ecol;  // AFFINE: E[i, iters]
   int* hrow;  // HEADER: (blocks, K, iters): H[nt, j], the bottom row
   int* frow;  // HEADER && AFFINE: F[nt, j]
   int* best;  // SW: (blocks, K, nt, 3): (v, i, j) of each row's best cell
-  int* out;   // OUTMAX: (blocks, nt): max over chains of H[i, iters]
+  int* out;   // OUTMAX: (blocks, nt): max over strips of H[i, iters]
 };
 
-// H[0, j] and H[i, 0] of the analytic edge (j, i >= 1).
+// H[0, n] and H[n, 0] of the analytic edge (n >= 1).
 template <bool AFFINE, bool SW>
 __device__ __forceinline__ int edge(int n, int gapo, int gape) {
   if (SW) return 0;
   return AFFINE ? gapo + n * gape : n * gapo;
 }
 
-// One strip of blockDim rows x iters columns for each of K chains, the
-// step of K1's first kernel (one row group of one tile).
-template <bool AFFINE, bool SW, bool LOOKUP, bool HEADER, bool ONEWARP,
-          bool OUTMAX, int K>
+// Words of a warp's shared memory: its window of column letters and the
+// staged bottom row (H, and F for affine gaps).
+__host__ __device__ constexpr int warp_words(bool lookup, bool header,
+                                             bool affine) {
+  return (lookup ? kWin : 0) + (header ? (affine ? 2 : 1) * 32 : 0);
+}
+
+// A lane's R rows of the strip.
+template <int R>
+struct Rows {
+  int srow[R];  // LOOKUP: offset of the row letter's substitution row;
+                // else the row's constant score
+  int h[R], e[R], f[R];
+  int bv[R], bj[R];  // SW: each row's first maximum and its column
+};
+
+// The state a lane carries from step to step.
+struct Lane {
+  int c;     // this lane's column at the step
+  int top;   // lane 0: H[0, c], the top edge
+  int dtop;  // H of the row above the lane's first, one column back
+  int up_h;  // H (and F) of the row above the lane's first, this column
+  int up_f;
+};
+
+// One step of a lane: column c of its R rows. CHECK: the column may lie
+// outside 1..iters, where a row keeps its state (select). Lane 31 stages
+// its last row at sl[j] (H) and sl[32 + j] (F).
+template <bool AFFINE, bool SW, bool LOOKUP, bool HEADER, bool CHECK, int R>
+__device__ __forceinline__ void step(Rows<R>& r, Lane& w, int xc,
+                                     const int* s_subst, int iters,
+                                     int gapo, int gape, int* sl, int j,
+                                     bool stager, bool lane0) {
+  const int gog = gapo + gape;
+  const int u0 = lane0 ? w.top : w.up_h;
+  const int uf0 = lane0 ? kNegInf : w.up_f;
+  const bool v = CHECK ? (unsigned)(w.c - 1) < (unsigned)iters : true;
+  int d = w.dtop;  // the chain's diagonal, row by row
+  int u = u0;      // the chain's cell above
+  w.dtop = u0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int sc = LOOKUP ? s_subst[r.srow[k] + xc] : r.srow[k];
+    int hn, en = 0, fn = 0;
+    // max(a, b) + g == max(a + g, b + g): each add that feeds a max fuses
+    // with it into one VIADDMNMX.
+    if (AFFINE) {
+      fn = max((k ? r.f[k - 1] : uf0) + gape, u + gog);
+      en = max(r.e[k] + gape, r.h[k] + gog);
+      hn = max(max(d + sc, en), fn);
+    } else {
+      hn = max(max(d + sc, r.h[k] + gapo), u + gapo);
+    }
+    if (SW) hn = max(hn, 0);
+    d = r.h[k];
+    u = hn;
+    if (SW) {
+      const bool better = v && hn > r.bv[k];
+      r.bv[k] = better ? hn : r.bv[k];
+      r.bj[k] = better ? w.c : r.bj[k];
+    }
+    r.h[k] = v ? hn : r.h[k];
+    if (AFFINE) {
+      r.e[k] = v ? en : r.e[k];
+      r.f[k] = fn;  // read only at this column, by the rows below
+    }
+  }
+  w.up_h = __shfl_up_sync(kFullMask, r.h[R - 1], 1);
+  if (AFFINE) w.up_f = __shfl_up_sync(kFullMask, r.f[R - 1], 1);
+  if (HEADER && stager) {
+    sl[j] = r.h[R - 1];
+    if (AFFINE) sl[32 + j] = r.f[R - 1];
+  }
+  if (!SW) w.top += AFFINE ? gape : gapo;
+  ++w.c;
+}
+
+// One warp a strip of 32*R rows x iters columns, K = blockDim.x / 32
+// strips a block: strip (blockIdx.x, warp) of the layout.
+template <bool AFFINE, bool SW, bool LOOKUP, bool HEADER, bool OUTMAX, int R>
 __global__ void __launch_bounds__(kMaxThreads)
 strip_kernel(StripArgs p) {
   extern __shared__ int smem[];
-  const int nt = blockDim.x, t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5, nwarps = nt >> 5;
+  constexpr int nt = 32 * R;
+  const int K = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ss = LOOKUP ? p.S * p.S : 0;
   int* s_subst = smem;
-  int* xh = smem + (LOOKUP ? p.S * p.S : 0);  // [nwarps][2][K]
-  int* xf = xh + 2 * K * nwarps;              // AFFINE: [nwarps][2][K]
-  if (LOOKUP)
-    for (int k = t; k < p.S * p.S; k += nt) s_subst[k] = p.subst[k];
-  __syncthreads();
+  int* win = smem + ss + warp * warp_words(LOOKUP, HEADER, AFFINE);
+  int* stage = win + (LOOKUP ? kWin : 0);
+  if (LOOKUP) {
+    for (int k = threadIdx.x; k < ss; k += blockDim.x) s_subst[k] = p.subst[k];
+    __syncthreads();
+  }
 
   const int iters = p.iters, gapo = p.gapo, gape = p.gape;
-  const int i = t + 1;  // this thread's DP row
-  const size_t row0 = (size_t)blockIdx.x * K * nt + t;  // chain k: + k * nt
-  int srow[K], score[K];
-  int h_left[K], e_left[K], diag[K], h_out[K], f_out[K];
-  int bv[K], bi[K], bj[K];
+  const size_t strip = (size_t)blockIdx.x * K + warp;
+  const int row0 = lane * R;  // the lane's rows: row0 + 1 .. row0 + R
+  Rows<R> r;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < R; ++k) {
+    r.srow[k] = LOOKUP ? p.y[strip * nt + row0 + k] * p.S
+                       : p.a[(size_t)blockIdx.x * nt + row0 + k] + warp;
+    r.h[k] = edge<AFFINE, SW>(row0 + k + 1, gapo, gape);
+    r.e[k] = kNegInf;
+    r.f[k] = kNegInf;
+    r.bv[k] = 0;
+    r.bj[k] = 0;
+  }
+  Lane w;
+  w.c = 1 - lane;
+  w.top = edge<AFFINE, SW>(1, gapo, gape);
+  w.dtop = 0;  // H[0, 0]
+  w.up_h = __shfl_up_sync(kFullMask, r.h[R - 1], 1);
+  w.up_f = kNegInf;
+  const bool stager = lane == 31, lane0 = lane == 0;
+
+  // Letters of columns t0 - 31 + lane (xlo) and t0 + 1 + lane (xhi) of
+  // the chunk of steps t0 .. t0 + 31; the lane reads column t0 + j + 1 -
+  // lane at step j from slot j + 32 - lane of the window.
+  const int* xk = p.x + (size_t)warp * (iters + 1);
+  auto letter = [&](int c) {
+    return LOOKUP && c >= 1 && c <= iters ? __ldg(xk + c) : 0;
+  };
+  int xlo = 0, xhi = letter(1 + lane);
+  int* const wl = win + 32 - lane;
+  // Lane 31's stage, addressed from its window pointer (win + 1 + 63 ==
+  // stage), so that the step's store shares the letter load's register.
+  int* const sl = LOOKUP ? wl + kWin - 1 : stage;
+  const int T = iters + 31;  // steps: lane 31 takes column iters last
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int xnext = letter(t0 + 33 + lane);
+    __syncwarp();  // the last chunk's window and stage reads are done
     if (LOOKUP) {
-      srow[k] = p.y[row0 + (size_t)k * nt] * p.S;
+      win[lane] = xlo;
+      win[32 + lane] = xhi;
+      __syncwarp();
+    }
+    if (t0 >= 32 && t0 + 32 <= iters) {
+#pragma unroll 4
+      for (int j = 0; j < 32; ++j)
+        step<AFFINE, SW, LOOKUP, HEADER, false, R>(
+            r, w, LOOKUP ? wl[j] : 0, s_subst, iters, gapo, gape, sl, j,
+            stager, lane0);
     } else {
-      score[k] = p.a[(size_t)blockIdx.x * nt + t] + k;
+      const int n = min(32, T - t0);
+#pragma unroll 1
+      for (int j = 0; j < n; ++j)
+        step<AFFINE, SW, LOOKUP, HEADER, true, R>(
+            r, w, LOOKUP ? wl[j] : 0, s_subst, iters, gapo, gape, sl, j,
+            stager, lane0);
     }
-    h_left[k] = edge<AFFINE, SW>(i, gapo, gape);
-    diag[k] = i == 1 ? 0 : edge<AFFINE, SW>(i - 1, gapo, gape);
-    e_left[k] = kNegInf;
-    h_out[k] = 0;
-    f_out[k] = 0;
-    bv[k] = bi[k] = bj[k] = 0;
+    if (HEADER) {
+      // Lane 31 took column t0 - 30 + j at step j; lane l stores slot l.
+      __syncwarp();
+      const int c = t0 - 30 + lane;
+      if (c >= 1 && c <= iters) {
+        const size_t o = strip * iters + c - 1;
+        p.hrow[o] = stage[lane];
+        if (AFFINE) p.frow[o] = stage[32 + lane];
+      }
+    }
+    xlo = xhi;
+    xhi = xnext;
   }
 
-  const int nsteps = nt + iters - 1;
-  for (int s = 0; s < nsteps; ++s) {
-    const int j = s - t + 1;  // this step's column
-    int up_h[K], up_f[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      up_h[k] = __shfl_up_sync(kFullMask, h_out[k], 1);
-      up_f[k] = AFFINE ? __shfl_up_sync(kFullMask, f_out[k], 1) : 0;
-    }
-    if (t == 0) {
-      const int top = edge<AFFINE, SW>(j, gapo, gape);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        up_h[k] = top;
-        up_f[k] = kNegInf;
-      }
-    } else if (!ONEWARP && lane == 0 && s > 0) {
-      const int o = (2 * (warp - 1) + ((s - 1) & 1)) * K;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        up_h[k] = xh[o + k];
-        if (AFFINE) up_f[k] = xf[o + k];
-      }
-    }
-    if (j >= 1 && j <= iters) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int sc = LOOKUP ? s_subst[srow[k] + p.x[k * (iters + 1) + j]]
-                              : score[k];
-        int h;
-        if (AFFINE) {
-          const int f = max(up_f[k], up_h[k] + gapo) + gape;
-          const int e = max(e_left[k], h_left[k] + gapo) + gape;
-          h = max(diag[k] + sc, max(e, f));
-          e_left[k] = e;
-          f_out[k] = f;
-        } else {
-          h = max(diag[k] + sc, max(up_h[k], h_left[k]) + gapo);
-        }
-        if (SW) {
-          h = max(h, 0);
-          if (h > bv[k] && i < nt + 1 && j < iters + 1) {
-            bv[k] = h;
-            bi[k] = i;
-            bj[k] = j;
-          }
-        }
-        diag[k] = up_h[k];
-        h_left[k] = h;
-        h_out[k] = h;
-        if (HEADER) {
-          if (j == iters) {
-            p.hcol[row0 + (size_t)k * nt] = h;
-            if (AFFINE) p.ecol[row0 + (size_t)k * nt] = e_left[k];
-          }
-          if (t == nt - 1) {
-            const size_t o = ((size_t)blockIdx.x * K + k) * iters + j - 1;
-            p.hrow[o] = h;
-            if (AFFINE) p.frow[o] = f_out[k];
-          }
-        }
-      }
-    }
-    if (!ONEWARP) {
-      if (lane == 31) {
-        const int o = (2 * warp + (s & 1)) * K;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          xh[o + k] = h_out[k];
-          if (AFFINE) xf[o + k] = f_out[k];
-        }
-      }
-      __syncthreads();
-    }
-  }
-
+  const size_t o = strip * nt + row0;
   if (OUTMAX) {
-    int m = h_left[0];
+    // The max over the block's strips, row by row, through shared memory.
+    int* s_out = smem + ss + K * warp_words(LOOKUP, HEADER, AFFINE);
 #pragma unroll
-    for (int k = 1; k < K; ++k) m = max(m, h_left[k]);
-    p.out[(size_t)blockIdx.x * nt + t] = m;
-  } else if (!HEADER) {
+    for (int k = 0; k < R; ++k) s_out[warp * nt + row0 + k] = r.h[k];
+    __syncthreads();
+    for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+      int m = s_out[i];
+      for (int s2 = 1; s2 < K; ++s2) m = max(m, s_out[s2 * nt + i]);
+      p.out[(size_t)blockIdx.x * nt + i] = m;
+    }
+  } else {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      p.hcol[row0 + (size_t)k * nt] = h_left[k];
-      if (AFFINE) p.ecol[row0 + (size_t)k * nt] = e_left[k];
+    for (int k = 0; k < R; ++k) {
+      p.hcol[o + k] = r.h[k];
+      if (AFFINE) p.ecol[o + k] = r.e[k];
     }
   }
   if (SW) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      int* o = p.best + 3 * (row0 + (size_t)k * nt);
-      o[0] = bv[k];
-      o[1] = bi[k];
-      o[2] = bj[k];
+    for (int k = 0; k < R; ++k) {
+      int* b = p.best + 3 * (o + k);
+      b[0] = r.bv[k];
+      b[1] = r.bv[k] > 0 ? row0 + k + 1 : 0;
+      b[2] = r.bj[k];
     }
   }
 }
@@ -323,9 +405,10 @@ int16_kernel(const int* __restrict__ a_in, int* __restrict__ out, int iters) {
 
 // ---------------------------------------------------------- dispatch --
 
-// A kernel and the dynamic shared memory it needs for blockDim nt.
+// A kernel, its threads a block and the dynamic shared memory it needs.
 struct Kernel {
   const void* fn;
+  int threads;
   size_t smem;
 };
 
@@ -338,89 +421,86 @@ const void* chain_fn(int nch) {
   return nullptr;
 }
 
-template <bool AFFINE, bool SW, bool LOOKUP, bool HEADER, bool ONEWARP,
-          bool OUTMAX>
-const void* strip_fn(int K) {
-  switch (K) {
-    case 1: return (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, ONEWARP, OUTMAX, 1>;
-    case 2: return (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, ONEWARP, OUTMAX, 2>;
-    case 4: return (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, ONEWARP, OUTMAX, 4>;
-    case 6: return (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, ONEWARP, OUTMAX, 6>;
-    case 8: return (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, ONEWARP, OUTMAX, 8>;
+template <bool AFFINE, bool SW, bool LOOKUP, bool HEADER, bool OUTMAX>
+Kernel strip_fn(int K, int nt, int S) {
+  const void* fn = nullptr;
+  switch (nt) {
+    case 32: fn = (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, OUTMAX, 1>; break;
+    case 64: fn = (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, OUTMAX, 2>; break;
+    case 128: fn = (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, OUTMAX, 4>; break;
+    case 256: fn = (const void*)strip_kernel<AFFINE, SW, LOOKUP, HEADER, OUTMAX, 8>; break;
   }
-  return nullptr;
+  if (K != 1 && K != 2 && K != 4 && K != 6 && K != 8) fn = nullptr;
+  const size_t words = (LOOKUP ? (size_t)S * S : 0) +
+                       (size_t)K * warp_words(LOOKUP, HEADER, AFFINE) +
+                       (OUTMAX ? (size_t)K * nt : 0);
+  return {fn, 32 * K, sizeof(int) * words};
 }
 
-size_t strip_smem(bool lookup, bool affine, int K, int nt, int S) {
-  return sizeof(int) * ((lookup ? (size_t)S * S : 0) +
-                        (affine ? 4 : 2) * (size_t)K * (nt / 32));
-}
-
-// The skeleton bodies of probe_chain: K1's step, constant scores, no
-// header I/O, the max over chains stored.
+// The skeleton bodies of probe_chain: the warp strip, constant scores, no
+// header I/O, the max over strips stored.
 Kernel skeleton_kernel(bool affine, int K, int nt) {
-  const void* fn = affine ? strip_fn<true, false, false, false, false, true>(K)
-                          : strip_fn<false, false, false, false, false, true>(K);
-  return {fn, strip_smem(false, affine, K, nt, 0)};
+  return affine ? strip_fn<true, false, false, false, true>(K, nt, 0)
+                : strip_fn<false, false, false, false, true>(K, nt, 0);
 }
 
 Kernel chain(int body, int nch, int nt) {
   switch (body) {
-    case kMaxAdd2: return {chain_fn<kMaxAdd2>(nch), 0};
-    case kViAddMax: return {chain_fn<kViAddMax>(nch), 0};
-    case kSelect: return {chain_fn<kSelect>(nch), 0};
-    case kShiftAdd2: return {chain_fn<kShiftAdd2>(nch), 0};
-    case kShfl: return {chain_fn<kShfl>(nch), 0};
+    case kMaxAdd2: return {chain_fn<kMaxAdd2>(nch), nt, 0};
+    case kViAddMax: return {chain_fn<kViAddMax>(nch), nt, 0};
+    case kSelect: return {chain_fn<kSelect>(nch), nt, 0};
+    case kShiftAdd2: return {chain_fn<kShiftAdd2>(nch), nt, 0};
+    case kShfl: return {chain_fn<kShfl>(nch), nt, 0};
     case kXWarp:
-      return {chain_fn<kXWarp>(nch), sizeof(int) * 2 * (size_t)nch * nt};
+      return {chain_fn<kXWarp>(nch), nt, sizeof(int) * 2 * (size_t)nch * nt};
     case kSkeletonLg: return skeleton_kernel(false, nch, nt);
     case kSkeletonAg: return skeleton_kernel(true, nch, nt);
   }
-  return {nullptr, 0};
+  return {nullptr, 0, 0};
 }
 
 template <bool AFFINE>
 Kernel fullstep(int variant, int K, int nt, int S) {
-  const void* fn = nullptr;
   switch (variant) {
-    case kBase: fn = strip_fn<AFFINE, false, true, true, false, false>(K); break;
-    case kNoLookup: fn = strip_fn<AFFINE, false, false, true, false, false>(K); break;
-    case kNoHeader: fn = strip_fn<AFFINE, false, true, false, false, false>(K); break;
-    case kOneWarp:
-      fn = nt == 32 ? strip_fn<AFFINE, false, true, true, true, false>(K) : nullptr;
-      break;
-    case kSw: fn = strip_fn<AFFINE, true, true, true, false, false>(K); break;
+    case kBase: return strip_fn<AFFINE, false, true, true, false>(K, nt, S);
+    case kNoLookup: return strip_fn<AFFINE, false, false, true, false>(K, nt, S);
+    case kNoHeader: return strip_fn<AFFINE, false, true, false, false>(K, nt, S);
+    case kOneWarp:  // the base body at strips of one row a lane
+      return strip_fn<AFFINE, false, true, true, false>(K, nt == 32 ? nt : 0, S);
+    case kSw: return strip_fn<AFFINE, true, true, true, false>(K, nt, S);
   }
-  return {fn, strip_smem(variant != kNoLookup, AFFINE, K, nt, S)};
+  return {nullptr, 0, 0};
 }
 
-Kernel int16(int mode) {
+Kernel int16(int mode, int nt) {
   switch (mode) {
-    case kI32: return {(const void*)int16_kernel<kI32>, 0};
-    case kI16x2: return {(const void*)int16_kernel<kI16x2>, 0};
-    case kI16x2Dpx: return {(const void*)int16_kernel<kI16x2Dpx>, 0};
+    case kI32: return {(const void*)int16_kernel<kI32>, nt, 0};
+    case kI16x2: return {(const void*)int16_kernel<kI16x2>, nt, 0};
+    case kI16x2Dpx: return {(const void*)int16_kernel<kI16x2Dpx>, nt, 0};
   }
-  return {nullptr, 0};
+  return {nullptr, 0, 0};
 }
 
-// entry: 0 probe_chain (sel = body, K = chains), 1 probe_fullstep,
-// 2 probe_fullstep_affine (sel = variant), 3 probe_int16 (sel = mode).
+// entry: 0 probe_chain (sel = body, K = chains; the skeletons' K = strips
+// a block), 1 probe_fullstep, 2 probe_fullstep_affine (sel = variant, K =
+// strips a block), 3 probe_int16 (sel = mode). nt: threads a block of the
+// chain bodies and of probe_int16, rows a strip of the strip kernels.
 Kernel select_kernel(int entry, int sel, int K, int nt, int S) {
-  if (nt < 32 || nt > kMaxThreads || nt % 32) return {nullptr, 0};
+  if (nt < 32 || nt > kMaxThreads || nt % 32) return {nullptr, 0, 0};
   switch (entry) {
     case 0: return chain(sel, K, nt);
     case 1: return fullstep<false>(sel, K, nt, S);
     case 2: return fullstep<true>(sel, K, nt, S);
-    case 3: return int16(sel);
+    case 3: return int16(sel, nt);
   }
-  return {nullptr, 0};
+  return {nullptr, 0, 0};
 }
 
-int launch(Kernel k, int blocks, int nt, void** args, void* stream) {
+int launch(Kernel k, int blocks, void** args, void* stream) {
   if (!k.fn || blocks < 1 || k.smem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t rc = cudaLaunchKernel(k.fn, dim3(blocks), dim3(nt), args,
-                                          k.smem, (cudaStream_t)stream);
+  const cudaError_t rc = cudaLaunchKernel(k.fn, dim3(blocks), dim3(k.threads),
+                                          args, k.smem, (cudaStream_t)stream);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
@@ -429,7 +509,7 @@ int strip_launch(int entry, int variant, int K, StripArgs p, int blocks,
   if (p.iters < 1 || p.S < 1 || p.S * p.S * sizeof(int) > kSmemLimit / 2)
     return (int)cudaErrorInvalidValue;
   void* args[] = {&p};
-  return launch(select_kernel(entry, variant, K, nt, p.S), blocks, nt, args,
+  return launch(select_kernel(entry, variant, K, nt, p.S), blocks, args,
                 stream);
 }
 
@@ -438,9 +518,11 @@ int strip_launch(int entry, int variant, int K, StripArgs p, int blocks,
 extern "C" {
 
 // K8a: out (blocks * nt,) = the max over nch chains of `iters` iterations
-// of `body` per thread. a (blocks * nt,). nch is 1 or 12 for bodies 0-5
-// and 1, 2, 4, 6 or 8 for the skeletons (6, 7), whose gapo and gape are
-// the strip's gap costs; returns a cudaError (0 on success).
+// of `body` per thread, nt threads a block. a (blocks * nt,). nch is 1 or
+// 12 for bodies 0-5. The skeletons (6, 7) run nch strips (warps) a block,
+// nch 1, 2, 4, 6 or 8, of nt rows (32, 64, 128 or 256) and `iters`
+// columns with the gap costs gapo and gape, and store the max over
+// strips; returns a cudaError (0 on success).
 int probe_chain(int body, int nch, const int* a, int gapo, int gape,
                 int iters, int blocks, int nt, int* out, void* stream) {
   if (iters < 0) return (int)cudaErrorInvalidValue;
@@ -455,12 +537,13 @@ int probe_chain(int body, int nch, const int* a, int gapo, int gape,
     return strip_launch(0, body, nch, p, blocks, nt, stream);
   }
   void* args[] = {&a, &out, &iters};
-  return launch(select_kernel(0, body, nch, nt, 0), blocks, nt, args, stream);
+  return launch(select_kernel(0, body, nch, nt, 0), blocks, args, stream);
 }
 
-// K8b: K strips of nt rows x iters columns per block, nw_lg or sw_lg
-// (variant 4), with the outputs of the StripArgs comment. best is null
-// unless variant is 4; hrow is not written by variant 2 (noheader).
+// K8b: K strips (warps) a block, each of nt rows (32, 64, 128 or 256; 32
+// for variant 3, onewarp) x iters columns, nw_lg or sw_lg (variant 4),
+// with the outputs of the StripArgs comment. best is null unless variant
+// is 4; hrow is not written by variant 2 (noheader).
 int probe_fullstep(int variant, int K, const int* subst, int S, const int* y,
                    const int* x, const int* a, int gapo, int iters,
                    int blocks, int nt, int* hcol, int* hrow, int* best,
@@ -488,12 +571,13 @@ int probe_int16(int mode, const int* a, int iters, int blocks, int nt,
                 int* out, void* stream) {
   if (iters < 0) return (int)cudaErrorInvalidValue;
   void* args[] = {&a, &out, &iters};
-  return launch(select_kernel(3, mode, 0, nt, 0), blocks, nt, args, stream);
+  return launch(select_kernel(3, mode, 0, nt, 0), blocks, args, stream);
 }
 
 // What the compiler made of one probe kernel (entry and sel as in
 // select_kernel): info = {registers a thread, local memory bytes a thread
-// (spills), resident blocks a SM at blockDim nt, dynamic shared bytes}.
+// (spills), resident blocks a SM at its threads a block, dynamic shared
+// bytes}.
 int probe_kernel_info(int entry, int sel, int K, int nt, int S, int* info) {
   const Kernel k = select_kernel(entry, sel, K, nt, S);
   if (!k.fn) return (int)cudaErrorInvalidValue;
@@ -501,8 +585,8 @@ int probe_kernel_info(int entry, int sel, int K, int nt, int S, int* info) {
   cudaError_t rc = cudaFuncGetAttributes(&attr, k.fn);
   if (rc != cudaSuccess) return (int)rc;
   int blocks = 0;
-  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.fn, nt,
-                                                     k.smem);
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.fn,
+                                                     k.threads, k.smem);
   if (rc != cudaSuccess) return (int)rc;
   info[0] = attr.numRegs;
   info[1] = (int)attr.localSizeBytes;

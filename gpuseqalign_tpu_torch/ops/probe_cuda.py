@@ -5,8 +5,10 @@
 their plain versions return. On a CUDA tensor each launches its kernel on
 the current stream (one block per row of ``a`` or ``y``; the caller sizes
 the grid) or raises; it uses the plain version only for tensors that lie
-on the CPU. ``kernel_info`` reports what the compiler made of a probe
-kernel (registers, spills, resident blocks a SM).
+on the CPU. The strip kernels (the skeletons and the fullstep bodies) run
+one warp a strip: K strips are a block of 32·K threads, and a strip of
+32·R rows gives each lane R rows. ``kernel_info`` reports what the
+compiler made of a probe kernel (registers, spills, resident blocks a SM).
 
 ``LAUNCHES`` counts kernel launches by kernel name, so a run can show that
 it went through the kernels.
@@ -32,10 +34,14 @@ KERNELS = ("probe_chain", "probe_fullstep", "probe_fullstep_affine",
            "probe_int16")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-# Chains a thread of the elementwise bodies may hold, and strips a block
-# of the skeletons and of the fullstep bodies (the kernel's instantiations).
+# Chains a thread of the elementwise bodies may hold; strips (warps) a
+# block of the skeletons and of the fullstep bodies; and their rows a
+# strip, 32·R for R rows a lane (the kernel's instantiations). MAX_THREADS
+# bounds the threads a block of the chain bodies, 32·K, and the rows a
+# strip.
 CHAIN_NCH = (1, 12)
 STRIP_K = (1, 2, 4, 6, 8)
+STRIP_ROWS = (32, 64, 128, 256)
 MAX_THREADS = 256
 
 _lib = None
@@ -80,12 +86,20 @@ def _check(name: str, t: torch.Tensor, dim: int, dev: torch.device) -> None:
                          f"shape {tuple(t.shape)}")
 
 
-def _check_threads(nt: int, onewarp: bool = False) -> None:
-    if onewarp and nt != 32:
-        raise ValueError(f"the onewarp variant runs 32 rows a strip, got {nt}")
+def _check_threads(nt: int) -> None:
     if nt < 32 or nt > MAX_THREADS or nt % 32:
         raise ValueError(f"threads a block must be a multiple of 32 in "
                          f"[32, {MAX_THREADS}], got {nt}")
+
+
+def _check_strips(K: int, nt: int, onewarp: bool = False) -> None:
+    if K not in STRIP_K:
+        raise ValueError(f"strips a block must be one of {STRIP_K}, got {K}")
+    if onewarp and nt != 32:
+        raise ValueError(f"the onewarp variant runs 32 rows a strip, got {nt}")
+    if nt not in STRIP_ROWS:
+        raise ValueError(f"rows a strip must be 32·R with R rows a lane, "
+                         f"one of {STRIP_ROWS}, got {nt}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -112,7 +126,8 @@ def probe_chain(a: torch.Tensor, body: str, nch: int, iters: int,
                 gapo: int = -11, gape: int = -2) -> torch.Tensor:
     """K8a: ``iters`` iterations of ``body`` on ``nch`` chains a thread;
     a (blocks, nt) -> (blocks, nt). The skeletons take ``iters`` columns
-    and the gap costs; their nch is the strips a block."""
+    and the gap costs; their nch is the strips (warps) a block, nt the
+    rows a strip."""
     if body not in CHAIN_BODIES:
         raise ValueError(f"unknown probe_chain body {body!r}")
     skeleton = body.startswith("skeleton_")
@@ -121,7 +136,10 @@ def probe_chain(a: torch.Tensor, body: str, nch: int, iters: int,
     if iters < (1 if skeleton else 0):
         raise ValueError(f"iters must be positive, got {iters}")
     _check("a", a, 2, a.device)
-    _check_threads(a.shape[1])
+    if skeleton:
+        _check_strips(nch, a.shape[1])
+    else:
+        _check_threads(a.shape[1])
     if not _on_cuda(a):
         return chain_plain(a, body, nch, iters, gapo, gape)
     out = torch.empty_like(a)
@@ -136,9 +154,10 @@ def probe_fullstep(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                    a: torch.Tensor, gapo: int, gape: int = 0, *,
                    gap: str = "linear", variant: str = "base"
                    ) -> Dict[str, torch.Tensor]:
-    """K8b (``gap`` "linear") and K8c ("affine"): K strips a block of
-    ``y.shape[2]`` rows and ``x.shape[1] - 1`` columns; subst (S, S),
-    y (blocks, K, nt), x (K, 1 + iters), a (blocks, nt)."""
+    """K8b (``gap`` "linear") and K8c ("affine"): K strips (warps) a
+    block of nt = ``y.shape[2]`` rows (32·R, R rows a lane) and
+    ``x.shape[1] - 1`` columns; subst (S, S), y (blocks, K, nt),
+    x (K, 1 + iters), a (blocks, nt)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if gap not in ("linear", "affine"):
@@ -156,9 +175,7 @@ def probe_fullstep(subst: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                          f"{tuple(y.shape)}, x {tuple(x.shape)} disagree")
     if tuple(a.shape) != (blocks, nt):
         raise ValueError(f"a must be {(blocks, nt)}, got {tuple(a.shape)}")
-    if K not in STRIP_K:
-        raise ValueError(f"K must be one of {STRIP_K}, got {K}")
-    _check_threads(nt, variant == "onewarp")
+    _check_strips(K, nt, variant == "onewarp")
     affine = gap == "affine"
     if not _on_cuda(y):
         return fullstep_plain(subst, y, x, a, gapo, gape if affine else 0,
@@ -214,8 +231,10 @@ def probe_int16(a: torch.Tensor, mode: str, iters: int) -> torch.Tensor:
 def kernel_info(kernel: str, sel: str, K: int, nt: int, S: int = 25
                 ) -> Dict[str, int]:
     """Registers a thread, local (spill) bytes a thread, resident blocks a
-    SM at ``nt`` threads and dynamic shared bytes of one probe kernel:
-    ``kernel`` one of KERNELS, ``sel`` its body, variant or mode."""
+    SM and dynamic shared bytes of one probe kernel: ``kernel`` one of
+    KERNELS, ``sel`` its body, variant or mode; ``nt`` its threads a block
+    (the chain bodies, probe_int16) or rows a strip (the strip kernels,
+    whose blocks are 32·K threads)."""
     names = {"probe_chain": CHAIN_BODIES, "probe_fullstep": VARIANTS,
              "probe_fullstep_affine": VARIANTS, "probe_int16": INT16_MODES}
     info = (ctypes.c_int * 4)()

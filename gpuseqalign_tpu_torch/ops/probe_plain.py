@@ -12,8 +12,8 @@ Layouts, shared with the wrappers in ``ops/probe_cuda.py``:
   chain    a (blocks, nt) int32 -> (blocks, nt): the max over nch chains,
            chain k starting at a + k
   strip    K strips a block, strip (b, k) of nt rows x iters columns with
-           the analytic edge of its spec; row i (1-based) of the strip is
-           thread i - 1. Scores: subst[y[b, k, i-1], x[k, j]] (lookup) or
+           the analytic edge of its spec, rows i = 1..nt and columns
+           j = 1..iters. Scores: subst[y[b, k, i-1], x[k, j]] (lookup) or
            a[b, i-1] + k (constant along the row: the skeletons and the
            nolookup variant). Outputs hcol/ecol (blocks, K, nt) = H/E at
            column iters, hrow/frow (blocks, K, iters) = H/F of row nt, and

@@ -6,12 +6,15 @@ bit against gpuseqalign_tpu: the elementwise chains against a
 ``jax.lax.fori_loop`` of the JAX probe's own body expressions
 (``bench/vpu_probe.py``, written out here: they are local lambdas there),
 and the DP strips against ``models/oracle.oracle_align_dense`` on a pair of
-the strip's size. Inputs are made with numpy from a seed. No Pallas kernel
-is compiled and nothing runs in interpret mode.
+the strip's size, at every strip height the kernels take (32·R rows, R
+rows a lane) and at one and two strips (warps) a block. Inputs are made
+with numpy from a seed. No Pallas kernel is compiled and nothing runs in
+interpret mode.
 """
 
 import io
 import json
+import re
 from contextlib import redirect_stdout
 
 import jax
@@ -35,6 +38,8 @@ from gpuseqalign_tpu_torch.ops.probe_plain import (
 
 GAPO, GAPE = -11, -2
 SPECS = ["nw_lg", "nw_ag", "sw_lg", "sw_ag"]
+# Rows a strip: 32·R for R rows a lane.
+STRIP_ROWS = [32, 64, 128, 256]
 
 
 def _t(v):
@@ -113,10 +118,11 @@ def _oracle_strip(subst, y_row, x_row, spec, gape):
                               gape)
 
 
+@pytest.mark.parametrize("nt", STRIP_ROWS)
 @pytest.mark.parametrize("K", [1, 2])
 @pytest.mark.parametrize("spec", ["nw_lg", "nw_ag"])
-def test_skeleton_strips_match_oracle(spec, K):
-    nt, iters, c = 64, 23, 3
+def test_skeleton_strips_match_oracle(spec, K, nt):
+    iters, c = 23, 3
     gape = GAPE if spec == "nw_ag" else 0
     a = np.full((2, nt), c, np.int32)
     got = probe_cuda.probe_chain(_t(a), f"skeleton_{spec}", K, iters, GAPO,
@@ -135,11 +141,13 @@ def _strip_case(K, nt, iters, seed=13):
                                   f"test{seed}")
 
 
-@pytest.mark.parametrize("variant", ["base", "noheader", "onewarp", "sw"])
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("variant,nt", [
+    (v, nt) for v in ("base", "noheader", "sw") for nt in STRIP_ROWS]
+    + [("onewarp", 32)])
 @pytest.mark.parametrize("gap", ["linear", "affine"])
-def test_fullstep_strips_match_oracle(gap, variant):
-    K, iters = 2, 19
-    nt = 32 if variant == "onewarp" else 64
+def test_fullstep_strips_match_oracle(gap, variant, nt, K):
+    iters = 19
     subst, y, x, a = _strip_case(K, nt, iters)
     gape = GAPE if gap == "affine" else 0
     got = probe_cuda.probe_fullstep(subst, y, x, a, GAPO, gape, gap=gap,
@@ -175,9 +183,10 @@ def test_fullstep_strips_match_oracle(gap, variant):
             np.stack(want[key]), err_msg=key)
 
 
+@pytest.mark.parametrize("nt", STRIP_ROWS)
 @pytest.mark.parametrize("gap", ["linear", "affine"])
-def test_fullstep_nolookup_is_the_skeleton_with_headers(gap):
-    K, nt, iters = 2, 64, 17
+def test_fullstep_nolookup_is_the_skeleton_with_headers(gap, nt):
+    K, iters = 2, 17
     subst, y, x, a = _strip_case(K, nt, iters)
     gape = GAPE if gap == "affine" else 0
     got = probe_cuda.probe_fullstep(subst, y, x, a, GAPO, gape, gap=gap,
@@ -220,6 +229,7 @@ def test_wrappers_launch_nothing_on_cpu_tensors():
     dict(body="maxadd2", nch=1, nt=512),    # above the block limit
     dict(body="maxadd2", nch=1, dtype=np.int64),
     dict(body="skeleton_nw_ag", nch=1, iters=0),
+    dict(body="skeleton_nw_lg", nch=2, nt=96),  # not 32·R rows, R = 2^n
 ])
 def test_probe_chain_rejects_bad_arguments(bad):
     a = np.ones((1, bad.get("nt", 64)), bad.get("dtype", np.int32))
@@ -239,6 +249,30 @@ def test_probe_fullstep_rejects_bad_arguments(bad):
         x = x[:1].contiguous()
     with pytest.raises(ValueError):
         probe_cuda.probe_fullstep(subst, y, x, a, GAPO, 0, variant=variant)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(nt=48), dict(nt=96), dict(nt=160), dict(nt=512),  # not 32·R
+    dict(K=3), dict(K=5), dict(K=16),                      # not in STRIP_K
+    dict(nt=64, variant="onewarp"),
+])
+def test_probe_fullstep_rejects_strip_shapes_before_any_launch(bad,
+                                                               monkeypatch):
+    """A strip height outside 32·R (R in 1, 2, 4, 8) or a strip count
+    outside STRIP_K raises on the CPU before the plain version (what a CPU
+    tensor would run) or a kernel is reached."""
+    def reached(*args, **kwargs):
+        raise AssertionError("the strip's shape was not checked first")
+
+    monkeypatch.setattr(probe_cuda, "fullstep_plain", reached)
+    before = _launch_counts()
+    subst, y, x, a = _strip_case(bad.get("K", 1), bad.get("nt", 32), 5)
+    for gap in ("linear", "affine"):
+        with pytest.raises(ValueError, match="strip"):
+            probe_cuda.probe_fullstep(subst, y, x, a, GAPO, GAPE, gap=gap,
+                                      variant=bad.get("variant", "base"))
+    assert _launch_counts() == before
+    assert probe_cuda.STRIP_ROWS == (32, 64, 128, 256)
 
 
 def _run_main(main, argv):
@@ -265,6 +299,48 @@ def test_vpu_probe_main_prints_one_object_per_probe():
     assert lines[8]["variant"] == "base" and lines[9]["variant"] == "sw"
 
 
+def test_roofline_body_reports_rows_a_lane_and_warps_a_block():
+    """roofline_body sweeps the rows a lane R and the strips (warps) a
+    block K, and returns the winner's R, K, rows and warps a SM (None on
+    the CPU, which has no SMs); the main's roofline lines carry them."""
+    r = vpu_probe.roofline_body("nw", "affine", device="cpu")
+    cpu = vpu_probe.CPU
+    assert r["spec"] == "nw_ag" and r["variant"] == "base"
+    assert r["rows"] == 32 * r["R"] and r["rows"] in cpu.roofline_rows
+    assert r["K"] in cpu.fullstep_ks and r["threads"] == 32 * r["K"]
+    assert "warps_per_sm" in r and r["warps_per_sm"] is None
+    assert set(r["sweep"]) == {f"R{nt // 32}_K{k}_b0"
+                               for nt in cpu.roofline_rows
+                               for k in cpu.fullstep_ks}
+    assert r["gcups"] == max(r["sweep"].values())
+    lines = _run_main(vpu_probe.main, ["roofline", "--K", "1"])
+    assert [d["probe"] for d in lines] == [
+        "roofline_nw_lg", "roofline_sw_lg", "roofline_nw_ag",
+        "roofline_sw_ag"]
+    for d in lines:
+        assert d["K"] == 1 and d["rows"] == 32 * d["R"]
+        assert d["rows"] in cpu.roofline_rows and "warps_per_sm" in d
+        assert set(d["sweep"]) == {f"R{nt // 32}_K1_b0"
+                                   for nt in cpu.roofline_rows}
+
+
+def test_hot_loop_is_the_largest_innermost_loop():
+    """sass_summary's hot loop: of the loops (backward branches), those
+    that hold no other loop, the largest; its opcodes counted; no loop,
+    no hot loop."""
+    insns = [(0x00, "LDS", None), (0x10, "VIADD", None),
+             (0x20, "VIMNMX", None), (0x30, "BRA", 0x10),      # inner A
+             (0x40, "SHFL", None), (0x50, "VIADD", None),
+             (0x60, "VIADD", None), (0x70, "LDS", None),
+             (0x80, "BRA", 0x50),                              # inner B
+             (0x90, "BRA", 0x00),                              # outer
+             (0xa0, "BRA", 0xc0), (0xb0, "STG", None),         # forward
+             (0xc0, "EXIT", None)]
+    assert vpu_probe._hot_loop(insns) == {
+        "insns": 4, "opcodes": {"VIADD": 2, "LDS": 1, "BRA": 1}}
+    assert vpu_probe._hot_loop(insns[:3] + insns[10:]) == {}
+
+
 def test_gridcost_needs_the_card():
     with pytest.raises(ValueError, match="card"):
         vpu_probe.probe_gridcost(64, device="cpu")
@@ -277,6 +353,7 @@ def test_headline_prints_one_line_and_its_cost_is_the_oracles(seq_data,
                         "body_gcups", "body_variant", "mfu", "peak_share",
                         "insns_per_cell", "card", "power_limit"}
     assert out["unit"] == "GCUPS" and out["card"] == "cpu"
+    assert re.fullmatch(r"base R[1248] K\d", out["body_variant"])
     assert out["insns_per_cell"] == vpu_probe.INSNS_PER_CELL["nw_ag"] == 6
     # Host-clock rates of the plain versions: numbers, whose sign a busy
     # host may flip for the two-point body rate; the cost is what counts.
