@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of gpuseqalign_tpu_torch (the PyTorch/CUDA port) on one card.
 
-    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant,probe,tools]
+    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant,probe,tools,scaling]
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (CUDA
 toolkit with nvcc; the kernels are built from the checkout's sources).
@@ -94,13 +94,20 @@ Phases, each of which makes the script exit non-zero if it fails:
                 align_giant2 at D = 1 for every spec, its layout held
                 against mlsp_fill's (K1) at the same tile, nw_ag's sparse
                 trace against tpu7_pallas_mlsp's, the fill timed with CUDA
-                events and held against banded_pass_plain; D = 2 and 4 bands on the one card (23728^2 every
-                spec, 100000^2 nw_ag) held against D = 1; --giantStream
+                events and held against banded_pass_plain; D = 2 and 4
+                bands on the one card (23728^2 every spec, 100000^2 nw_ag;
+                a band's K7 call holds C passes, pick_call_passes) held
+                against D = 1, each D's fill ms, C, calls and launches
+                (D x calls); --giantStream
                 and --giantSequential on pair_generated_1 nw_ag (one band:
                 both one call a pair), then align_giant2_stream against
                 align_giant2 on two bands of the one card; the batch
-                engine on a two-entry mesh against no mesh; and
-                align_pairs_multihost in two processes on the one card
+                engine on a two-entry mesh against no mesh;
+                align_pairs_multihost in two processes on the one card;
+                and align_giant2 on the release pair (nw_ag) over a mesh
+                that spans two gloo processes on the one card (D = 4, two
+                bands a process, the halo through pinned host memory),
+                both ranks' cost, hashes and transcript equal to D = 1's
   8. probe      the step-body probes (K8a-d, ops/csrc/probe.cu): every
                 probe entry, body, variant, strip count and rows a lane
                 (strips of 32 to 256 rows; 1, 33, 45 and 64 columns, a
@@ -134,6 +141,12 @@ Phases, each of which makes the script exit non-zero if it fails:
                 entries saved under a temporary root and read back; and
                 giant_demo's 100000^2 nw_ag fill, its first tile-header
                 row held against the plain fill of the same rows
+ 10. scaling    bench.scaling_report at its full sizes on the card: the
+                batch engine on one card, on a two-entry mesh and in two
+                gloo processes (pair_generated_1), the 100000^2 giant pair
+                at D = 1 and 4 beside the call model, and a stream at
+                D = 4 against one call a pair; every row from a fresh
+                subprocess, naming what it ran on, logged
 
 With every phase run (the default), the line before the last is a JSON
 object describing every kernel and the last line is the contract line
@@ -144,6 +157,7 @@ checkout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -157,7 +171,7 @@ RESRC = os.path.join(HERE, "resrc")
 OUT = os.path.join(HERE, "logs", "chip_smoke")
 SPECS = ("nw_lg", "nw_ag", "sw_lg", "sw_ag")
 PHASES = ("build", "kernels", "cli", "full", "throughput", "giant",
-          "probe", "tools")
+          "probe", "tools", "scaling")
 GAPO = -11
 GAPE = {"nw_lg": 0, "sw_lg": 0, "nw_ag": -2, "sw_ag": -2}
 
@@ -300,12 +314,14 @@ def cell_insns(spec: str) -> int:
     return INSNS_PER_CELL[spec]
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, peak: float = None) -> tuple:
     """(ms, "operations"|"bytes"): the larger of the two least times;
-    ``ops`` counts int32 instructions issued."""
+    ``ops`` counts int32 instructions issued, at ``peak`` a second (by
+    default the card's issue rate)."""
     from gpuseqalign_tpu_torch.bench.vpu_probe import ISSUE_INSNS_PER_S
 
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ISSUE_INSNS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (peak or ISSUE_INSNS_PER_S)
     return (1e3 * max(t_bytes, t_ops),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1381,43 +1397,81 @@ def check_banded_kernel(torch, subst, subst_np) -> int:
 def banded_streams(torch, subst, y, x, spec, rows, cols, R, TW, bc, D, BL,
                    want, rep) -> None:
     """giant2_fill on a mesh of D entries of the one card (each band's
-    passes on its own stream, one K7 call a pass, halos after CUDA events)
-    against band_chain's plain calls ``want``; ``rep`` numbers the run."""
-    from gpuseqalign_tpu_torch.parallel import giant2_fill, make_mesh
+    calls on its own stream, halos after CUDA events), at calls of one
+    pass and at the engine's call height (pick_call_passes), against
+    band_chain's plain calls ``want`` (one a pass): every grid pass by
+    pass, and each call's SW best cell against the first maximum of its
+    passes'; ``rep`` numbers the run."""
+    from gpuseqalign_tpu_torch.ops.mlsp_cuda import tile_best
+    from gpuseqalign_tpu_torch.parallel import giant2_fill, make_mesh, schedule
 
     mesh = make_mesh(devices=["cuda:0"] * D, axis_name="sp")
     n_pass = (y.numel() - 1) // (BL * R)
-    bands = giant2_fill(subst, [y], [x], GAPO, GAPE[spec], [rows + 1],
-                        [cols + 1], mesh=mesh, R=R, TW=TW, band_cols=bc,
-                        BL=BL, **kind_gap(spec))[0]
-    torch.cuda.synchronize()
-    for k, grid in enumerate(bands):
-        for p in range(n_pass):
-            b0, w = p * BL, want[k * n_pass + p]
-            for name, t in w.items():
-                if name == "best":
-                    g = grid["best"][p].clone()  # the pair's frame
-                    g[1] -= p * BL * R
-                    g[2] -= k * bc
-                else:
+    with call_passes(1):
+        plans = [schedule(D, R, TW, bc, BL, [n_pass])]
+    plans += [schedule(D, R, TW, bc, BL, [n_pass])]
+    for plan in sorted(set(plans), key=lambda p: p.C):
+        C = plan.C
+        bands = giant2_fill(subst, [y], [x], GAPO, GAPE[spec], [rows + 1],
+                            [cols + 1], mesh=mesh, plan=plan,
+                            **kind_gap(spec))[0]
+        torch.cuda.synchronize()
+        where = (f"{spec} {rows}x{cols} R {R} TW {TW} band_cols {bc} D {D} "
+                 f"BL {BL}, calls of {C} passes")
+        for k, grid in enumerate(bands):
+            for p in range(n_pass):
+                b0, w = p * BL, want[k * n_pass + p]
+                for name, t in w.items():
+                    if name == "best":
+                        continue
                     g = grid[name][b0:b0 + BL + (name in ("hrows", "frows"))]
-                if not torch.equal(g, t):
-                    fail(f"giant2_fill != plain: {spec} {rows}x{cols} R {R} "
-                         f"TW {TW} band_cols {bc} D {D} BL {BL}, band {k} "
-                         f"pass {p} {name}, run {rep}")
+                    if not torch.equal(g, t):
+                        fail(f"giant2_fill != plain: {where}, band {k} pass "
+                             f"{p} {name}, run {rep}")
+            calls = range(0, n_pass, C) if "best" in grid else ()
+            for c, p0 in enumerate(calls):
+                # The call's passes' bests in the call's frame.
+                cand = torch.stack([
+                    want[k * n_pass + p]["best"] + torch.tensor(
+                        [0, (p - p0) * BL * R, 0], dtype=torch.int32,
+                        device="cuda")
+                    for p in range(p0, min(p0 + C, n_pass))])
+                g = grid["best"][c].clone()  # the pair's frame
+                g[1] -= p0 * BL * R
+                g[2] -= k * bc
+                if not torch.equal(g, tile_best(cand.view(1, -1, 3),
+                                                 bc + 1)[0]):
+                    fail(f"giant2_fill != plain: {where}, band {k} call {c}"
+                         f" best, run {rep}")
 
 
-def engine_geometry(spec, n_rows, n_cols, D, pr=None):
-    """(R, TW, band_cols, BL) the giant engine takes on the card for an
-    n_rows x n_cols pair of ``spec`` on D bands: ``pr``'s tile, else the
+@contextlib.contextmanager
+def call_passes(C):
+    """The giant engine's call height forced to C passes inside the block
+    (``giant2.pick_call_passes`` patched, as the tests force it)."""
+    from gpuseqalign_tpu_torch.parallel import giant2
+
+    real = giant2.pick_call_passes
+    giant2.pick_call_passes = lambda *a, **k: C
+    try:
+        yield
+    finally:
+        giant2.pick_call_passes = real
+
+
+def engine_plan(spec, n_rows, n_cols, D, pr=None):
+    """The giant engine's plan (``fill_plan``) on the card for an n_rows x
+    n_cols pair on D bands: ``pr``'s tile, else, for a ``spec``, the
     card's tuned cache's (ops/tuned.py), else 128 x 128."""
     import torch
 
     from gpuseqalign_tpu_torch.core.types import AlgParams, AlignSpec
-    from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
+    from gpuseqalign_tpu_torch.parallel import fill_plan
 
-    return band_geometry(pr or AlgParams({}), [n_rows], [n_cols], D,
-                         AlignSpec.from_name(spec), torch.device("cuda"))
+    if spec is None:
+        return fill_plan(pr or AlgParams({}), [n_rows], [n_cols], D)
+    return fill_plan(pr or AlgParams({}), [n_rows], [n_cols], D,
+                     AlignSpec.from_name(spec), torch.device("cuda"))
 
 
 def time_banded(torch, subst, subst_np, n, S) -> dict:
@@ -1431,8 +1485,9 @@ def time_banded(torch, subst, subst_np, n, S) -> dict:
 
     out = {}
     for i, spec in enumerate(SPECS):
-        R, TW, bc, BL = engine_geometry(spec, n, n, 1)
-        rows_p = -(-n // (BL * R)) * BL * R
+        plan = engine_plan(spec, n, n, 1)
+        R, TW, bc, BL = plan.R, plan.TW, plan.band_cols, plan.BL
+        rows_p = plan.n_pass[0] * BL * R
         y, x = padded_inputs(torch, subst_np, n, n, rows_p, bc, 500 + i)
         args = (subst, y, x, spec, n, n, R, TW, bc, 1, rows_p // R)
         band_chain(torch, banded_pass, *args)  # warm-up
@@ -1462,27 +1517,13 @@ def time_banded(torch, subst, subst_np, n, S) -> dict:
 
 
 def giant_inputs(torch, y_np, x_np, n_rows, n_cols, D, pr=None, spec=None):
-    """The engine's geometry for an n_rows x n_cols pair on D bands (at
+    """The engine's plan for an n_rows x n_cols pair on D bands (at
     ``spec``'s tuned tile on the card when a spec is given, else at the
-    literal one) and the pair zero-padded to it, on the card: (R, TW,
-    band_cols, BL, rows_p, y, x)."""
-    import numpy as np
-
-    from gpuseqalign_tpu_torch.core.types import AlgParams
-    from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
-
-    if spec is None:
-        R, TW, bc, BL = band_geometry(pr or AlgParams({}), [n_rows],
-                                      [n_cols], D)
-    else:
-        R, TW, bc, BL = engine_geometry(spec, n_rows, n_cols, D, pr)
-    rows_p = -(-max(n_rows, 1) // (BL * R)) * BL * R
-    y = np.zeros(1 + rows_p, np.int32)
-    x = np.zeros(1 + D * bc, np.int32)
-    y[:n_rows + 1] = y_np
-    x[:n_cols + 1] = x_np
-    return (R, TW, bc, BL, rows_p, torch.from_numpy(y).cuda(),
-            torch.from_numpy(x).cuda())
+    literal one) and the pair zero-padded to it, on the card: (plan, y,
+    x)."""
+    plan = engine_plan(spec, n_rows, n_cols, D, pr)
+    y, x = plan.pad(y_np, x_np)
+    return plan, y.cuda(), x.cuda()
 
 
 def giant_pair(S, n):
@@ -1575,13 +1616,14 @@ def giant_full(torch, subst, subst_np, S) -> dict:
                      f"equal")
         laps = res.sw_align.laps()
         del nw, ref, res, rres
-        R, TW, bc, BL, rows_p, y, x = giant_inputs(torch, y_np, x_np, n, n, 1,
-                                                    spec=spec)
+        plan, y, x = giant_inputs(torch, y_np, x_np, n, n, 1, spec=spec)
+        R, TW, bc, BL = plan.R, plan.TW, plan.band_cols, plan.BL
+        rows_p = plan.n_pass[0] * BL * R
 
         def fill():
             return giant2_fill(subst, [y], [x], GAPO, GAPE[spec], [n + 1],
-                               [n + 1], mesh=one, R=R, TW=TW, band_cols=bc,
-                               BL=BL, **kind_gap(spec))
+                               [n + 1], mesh=one, plan=plan,
+                               **kind_gap(spec))
 
         ms = cuda_ms(torch, fill, 2)
         got = dict(fill()[0][0])
@@ -1615,11 +1657,11 @@ def giant_full(torch, subst, subst_np, S) -> dict:
 
 def giant_bands(torch, subst, S, n, specs, Ds) -> dict:
     """An n x n pair through giant2_fill on the one card at D = 1 and at
-    each D of Ds (D bands on D streams, halos by device-local copies),
-    every spec of specs: the gathered layout of each D equal to D = 1's
-    on the tiles both have; the CUDA-event ms of that one fill (its
-    header grids come from the allocator's cache of the runs before) and
-    its launches."""
+    each D of Ds (D bands on D streams, halos by device-local copies,
+    calls of C passes by pick_call_passes), every spec of specs: the
+    gathered layout of each D equal to D = 1's on the tiles both have;
+    the fill's CUDA-event ms (mean of 3 after a warm-up), C, the calls a
+    band and the launches, which must be D x calls."""
     from gpuseqalign_tpu_torch.ops import banded_cuda
     from gpuseqalign_tpu_torch.parallel import giant2_fill, make_mesh
     from gpuseqalign_tpu_torch.parallel.giant2 import gather_bands
@@ -1630,23 +1672,30 @@ def giant_bands(torch, subst, S, n, specs, Ds) -> dict:
         base = None
         for D in (1,) + tuple(Ds):
             mesh = make_mesh(devices=["cuda:0"] * D, axis_name="sp")
-            R, TW, bc, BL, rows_p, y, x = giant_inputs(torch, y_np, x_np, n,
-                                                        n, D)
+            plan, y, x = giant_inputs(torch, y_np, x_np, n, n, D)
+            bc, BL, C, calls = plan.band_cols, plan.BL, plan.C, plan.calls
+            n_pass = plan.n_pass[0]
+            rows_p = n_pass * BL * plan.R
 
             def fill():
                 return giant2_fill(subst, [y], [x], GAPO, GAPE[spec],
-                                   [n + 1], [n + 1], mesh=mesh, R=R, TW=TW,
-                                   band_cols=bc, BL=BL, **kind_gap(spec))
+                                   [n + 1], [n + 1], mesh=mesh, plan=plan,
+                                   **kind_gap(spec))
 
+            fill()  # warm-up
+            ms = cuda_ms(torch, fill, 3)
             banded_cuda.LAUNCHES = 0
-            bands = []
-            ms = cuda_ms(torch, lambda: bands.extend(fill()[0]), 1)
+            bands = fill()[0]
             n_launch = banded_cuda.LAUNCHES
+            if n_launch != D * calls:
+                fail(f"giant {n}x{n} {spec} D {D}: {n_launch} launches, "
+                     f"not D x {calls} calls")
             g = gather_bands([{k: v.cpu().numpy() for k, v in b.items()}
-                              for b in bands], band_cols=bc, tile_w=TW)
+                              for b in bands], band_cols=bc,
+                             tile_w=plan.TW)
             del bands
             if base is None:
-                base = g
+                base, base_ms = g, ms
             else:
                 for k, a in g.items():
                     b = base[k]
@@ -1655,12 +1704,16 @@ def giant_bands(torch, subst, S, n, specs, Ds) -> dict:
                     if not (a[sl] == b[sl]).all():
                         fail(f"giant {n}x{n} {spec} D {D}: {k} differs "
                              f"from D 1")
-            out[f"{spec}_D{D}"] = dict(ms=ms, launches=n_launch)
+            out[f"{spec}_D{D}"] = dict(ms=ms, launches=n_launch, C=C,
+                                       calls=calls, BL=BL, band_cols=bc,
+                                       n_pass=n_pass)
             log(f"phase giant {n}x{n} {spec} D {D} on one card (band "
-                f"{rows_p}x{bc}, BL {BL}, {rows_p // (BL * R)} passes): "
-                f"fill {ms:.3f} ms ({n * n / (ms * 1e-3) / 1e9:.3f} GCUPS), "
-                f"{n_launch} launches"
-                + ("" if D == 1 else ", layout equal to D 1's"))
+                f"{rows_p}x{bc}, BL {BL}, {n_pass} passes, calls of C {C} "
+                f"passes, {calls} calls a band): fill {ms:.3f} ms "
+                f"({n * n / (ms * 1e-3) / 1e9:.3f} GCUPS), {n_launch} "
+                f"launches (D x calls)"
+                + ("" if D == 1 else
+                   f", {ms / base_ms:.3f}x D 1's, layout equal to D 1's"))
             del g
     return out
 
@@ -1729,6 +1782,121 @@ def run_multihost(torch, subst_np, S) -> float:
     return wall
 
 
+GIANT_PROCS_WORKER = """
+import json, sys, time
+sys.path.insert(0, sys.argv[3])
+import numpy as np
+import torch
+import torch.distributed as dist
+from gpuseqalign_tpu_torch.core.registry import get_algorithm_map
+from gpuseqalign_tpu_torch.core.types import (
+    AlgParams, AlgResult, make_alg_input)
+from gpuseqalign_tpu_torch.io.fasta import parse_seq_file
+from gpuseqalign_tpu_torch.io.subst import parse_subst_file
+from gpuseqalign_tpu_torch.ops import banded_cuda
+from gpuseqalign_tpu_torch.parallel import (
+    align_giant2, distributed_init, make_mesh)
+rank = int(sys.argv[1])
+distributed_init("localhost:" + sys.argv[2], 2, rank)
+mesh = make_mesh(devices=["cuda:0", "cuda:0"], axis_name="sp",
+                 span_processes=True)
+subst_file = parse_subst_file(sys.argv[4])
+seq = np.asarray(parse_seq_file(sys.argv[5], subst_file.letter_map)
+                 .seq_map[sys.argv[6]].seq, np.int32)
+nw = make_alg_input(subst_file.subst_map["blosum62"], seq, seq, -11, -2,
+                    "nw_ag")
+res = AlgResult()
+alg = get_algorithm_map()["tpu9_giant_mlsp"]
+t0 = time.perf_counter()
+stat = align_giant2(AlgParams({}), nw, res, mesh=mesh)
+align_s = time.perf_counter() - t0
+stats = [int(stat), int(alg.hash(nw, res)), int(alg.trace(nw, res, False))]
+print(json.dumps({"rank": rank, "size": mesh.size, "stats": stats,
+                  "cost": int(res.align_cost),
+                  "score_hash": int(res.score_hash),
+                  "trace_hash": int(res.trace_hash),
+                  "edit_trace": res.edit_trace, "align_s": align_s,
+                  "launches": banded_cuda.LAUNCHES,
+                  "laps": res.sw_align.laps()}))
+dist.destroy_process_group()
+"""
+
+
+def run_giant_procs(torch, subst_np, seq) -> dict:
+    """align_giant2 on the release pair (nw_ag) over a mesh that spans two
+    gloo processes, both on cuda:0, two bands each (D = 4): the halo of
+    each call crosses the process edge through pinned host memory, and
+    both ranks get every band. Each rank's statuses, cost, score hash,
+    trace hash and transcript must equal align_giant2's at D = 1 here. A
+    worker's exit other than 0 fails the run. Returns the two processes'
+    wall seconds and each rank's numbers."""
+    import socket
+
+    from gpuseqalign_tpu_torch.core.registry import get_algorithm_map
+    from gpuseqalign_tpu_torch.core.types import (
+        AlgParams,
+        AlgResult,
+        make_alg_input,
+    )
+    from gpuseqalign_tpu_torch.parallel import align_giant2
+
+    os.makedirs(OUT, exist_ok=True)
+    worker = os.path.join(OUT, "giant_procs_worker.py")
+    with open(worker, "w") as f:
+        f.write(GIANT_PROCS_WORKER)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(rank), str(port), HERE,
+         os.path.join(RESRC, "subst.json"), SEQS, RELEASE_SEQ],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in (0, 1)]
+    outs = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"giant procs worker exit {proc.returncode}: "
+                     f"{stderr[-3000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    alg = get_algorithm_map()["tpu9_giant_mlsp"]
+    nw = make_alg_input(subst_np, seq, seq, GAPO, GAPE["nw_ag"], "nw_ag")
+    res = AlgResult()
+    stats = [int(align_giant2(AlgParams({}), nw, res)),
+             int(alg.hash(nw, res)), int(alg.trace(nw, res, False))]
+    want = dict(stats=stats, cost=int(res.align_cost),
+                score_hash=int(res.score_hash),
+                trace_hash=int(res.trace_hash), edit_trace=res.edit_trace)
+    if stats != [0, 0, 0]:
+        fail(f"giant release pair D 1: statuses {stats}")
+    for out in outs:
+        got = {k: out[k] for k in want}
+        if out["size"] != 4 or got != want:
+            bad = [k for k in want if got[k] != want[k]]
+            fail(f"giant release pair over two processes, rank "
+                 f"{out['rank']}: {bad} differ from D 1's")
+    log(f"phase giant: align_giant2 on the release pair {FULL_N}^2 nw_ag "
+        f"over two gloo processes on cuda:0 (D 4, 2 bands a process; card "
+        f"{card_line()}): both ranks' cost {want['cost']}, score hash, trace"
+        f" hash and transcript ({len(want['edit_trace'])} characters) equal"
+        f" to D 1's; wall {wall:.1f} s for both processes, align_giant2 "
+        + " / ".join(f"{o['align_s']:.2f}" for o in outs)
+        + " s (rank 0 / 1), K7 launches "
+        + " / ".join(str(o["launches"]) for o in outs) + "; laps ms "
+        + " | ".join(", ".join(f"{k} {v:.1f}" for k, v in o["laps"].items())
+                     for o in outs))
+    return dict(wall_s=wall, ranks=[{k: o[k] for k in ("align_s", "launches",
+                                                       "laps")}
+                                    for o in outs])
+
+
 def giant_stream_two_bands(torch, subst_np, want) -> dict:
     """pair_generated_1 nw_ag on two bands of the one card, where the
     stream has a band pipeline to fill: align_giant2_stream against one
@@ -1788,6 +1956,34 @@ def giant_stream_two_bands(torch, subst_np, want) -> dict:
             + f" ms; {launches[m]} launches)" for m in ts)
         + "; costs and best cells equal to D 1's")
     return out
+
+
+def phase_scaling() -> dict:
+    """bench.scaling_report at its full sizes on the card (every row from
+    a fresh subprocess, each naming what it ran on), its document written
+    to logs/chip_smoke/scaling_report.json; every row logged. A row that
+    fails fails the phase."""
+    import contextlib
+    import io
+
+    from gpuseqalign_tpu_torch.bench import scaling_report
+
+    path = os.path.join(OUT, "scaling_report.json")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = scaling_report.main(["--out", path])
+    except (RuntimeError, subprocess.TimeoutExpired) as err:
+        fail(f"scaling report: {err}")
+    if rc != 0:
+        fail(f"scaling report: exit {rc}")
+    with open(path) as f:
+        report = json.load(f)
+    for name, row in report["configs"].items():
+        log(f"phase scaling {name}: " + json.dumps(row))
+    log(f"phase scaling: {len(report['configs'])} rows in "
+        f"{report['elapsed_s']:.1f} s")
+    return report
 
 
 def phase_giant(torch, cli_main, subst, subst_np, S) -> dict:
@@ -1873,6 +2069,10 @@ def phase_giant(torch, cli_main, subst, subst_np, S) -> dict:
         f"equals align_pairs_batched (512 synthetic pairs, sw_ag) in "
         f"{r['multihost_s']:.1f} s")
     r["mesh_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    r["procs"] = run_giant_procs(torch, subst_np, release_seq())
+    r["procs_s"] = time.perf_counter() - t0
     return r
 
 
@@ -2076,9 +2276,11 @@ def time_probe_kernels(torch, res) -> dict:
     at M2, and each spec's roofline winner (sw included) at its R, K, grid
     and both column counts. One call of each kernel is also timed for the
     kernels line (CUDA-event ms, mean of 3 after a warm-up; plain ms of
-    one call) with its bound over the int32 instructions it issues;
-    max_abs_err is over every call held. The nw bodies are also timed and
-    held at PROBE_OLD_GRIDS, to stand beside the earlier design's
+    one call) with its bound over the int32 instructions it issues (a
+    chain body's over the pipe its one instruction issues on,
+    ``vpu_probe.BODY_PEAK``, the int32 pipe for the int16 modes);
+    max_abs_err is over every call held. The nw bodies are also timed
+    and held at PROBE_OLD_GRIDS, to stand beside the earlier design's
     readings."""
     from gpuseqalign_tpu_torch.bench import vpu_probe as vp
     from gpuseqalign_tpu_torch.ops import probe_cuda
@@ -2102,11 +2304,11 @@ def time_probe_kernels(torch, res) -> dict:
         out[kernel]["held"] += 1
         return plain_ms
 
-    def timed(kernel, name, run, plain, nbytes, ops):
+    def timed(kernel, name, run, plain, nbytes, ops, peak=None):
         run()
         ms = cuda_ms(torch, run, 3)
         plain_ms = hold(kernel, name, run, plain)
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(nbytes, ops, peak)
         out[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, timed=name)
         log(f"phase probe timing {kernel} {name}: kernel {ms:.4f} ms, plain "
@@ -2124,7 +2326,8 @@ def time_probe_kernels(torch, res) -> dict:
         name = f"{body} x{blocks} blocks, {iters} iterations"
         if body == "maxadd2":
             timed("probe_chain", name, run, plain, 8 * a.numel(),
-                  a.numel() * vp.OPS_CHAINS * iters * vp.BODY_INSNS[body])
+                  a.numel() * vp.OPS_CHAINS * iters * vp.BODY_INSNS[body],
+                  vp.BODY_PEAK[body])
         else:
             hold("probe_chain", name, run, plain)
     rows, m1, m2 = vp.CARD.strip_rows, *vp.CARD.strip_iters
@@ -2145,7 +2348,8 @@ def time_probe_kernels(torch, res) -> dict:
         name = f"{mode} x{blocks} blocks, {iters} iterations"
         if mode == "i16x2":
             timed("probe_int16", name, run, plain, 8 * a.numel(),
-                  a.numel() * pp.INT16_CHAINS * iters * vp.INT16_INSNS[mode])
+                  a.numel() * pp.INT16_CHAINS * iters * vp.INT16_INSNS[mode],
+                  vp.INT32_PIPE_INSNS_PER_S)
         else:
             hold("probe_int16", name, run, plain)
 
@@ -2670,7 +2874,8 @@ def main() -> int:
         log(f"phase giant steps s: cli {giant['cli_s']:.1f}, 100000^2 D 1 "
             f"{giant['full_s']:.1f}, D 2/4 {giant['bands_s']:.1f}, streams "
             f"{giant['streams_s']:.1f}, batch mesh and multihost "
-            f"{giant['mesh_s']:.1f}")
+            f"{giant['mesh_s']:.1f}, release pair over two processes "
+            f"{giant['procs_s']:.1f}")
 
     # 8. the step-body probes and the headline bench
     probe, probe_launches, probe_timing = {}, {}, {}
@@ -2699,6 +2904,12 @@ def main() -> int:
         tools_tune(torch, subst_np, seq)
         tools_demo(torch)
         times["tools"] = time.perf_counter() - t0
+
+    # 10. the scaling report, every row on the card
+    if "scaling" in phases:
+        t0 = time.perf_counter()
+        phase_scaling()
+        times["scaling"] = time.perf_counter() - t0
 
     log("phase times s: " + json.dumps({k: round(v, 2)
                                           for k, v in times.items()}))

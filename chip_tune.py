@@ -70,8 +70,7 @@ def main() -> int:
     from gpuseqalign_tpu_torch.io.subst import parse_subst_file
     from gpuseqalign_tpu_torch.ops import build, tuned
     from gpuseqalign_tpu_torch.ops.mlsp_cuda import mlsp_fill
-    from gpuseqalign_tpu_torch.parallel import giant2_fill
-    from gpuseqalign_tpu_torch.parallel.giant2 import band_geometry
+    from gpuseqalign_tpu_torch.parallel import fill_plan, giant2_fill
     from gpuseqalign_tpu_torch.parallel.mesh import default_mesh
 
     card = cs.card_line()
@@ -103,15 +102,14 @@ def main() -> int:
             M_FILLS)
 
     def k7(spec, tile):
-        R, TW, bc, BL = band_geometry(
+        plan = fill_plan(
             AlgParams({"tileBy": [tile[0]], "tileBx": [tile[1]]}), [nb],
             [nb], 1)
-        y = autotune._padded(big, BL * R, dev)
-        x = autotune._padded(big, bc, dev)
+        y, x = (t.to(dev) for t in plan.pad(big, big))
         return autotune._fill_ms(lambda: giant2_fill(
             subst, [y], [x], cs.GAPO, cs.GAPE[spec], [nb + 1], [nb + 1],
-            mesh=default_mesh(dev), R=R, TW=TW, band_cols=bc, BL=BL,
-            **cs.kind_gap(spec)), dev, M_FILLS)
+            mesh=default_mesh(dev), plan=plan, **cs.kind_gap(spec)), dev,
+            M_FILLS)
 
     def cli_laps(spec, tile, band, turn):
         params = {"tpu7_pallas_mlsp": {"tileBy": [tile[0]],

@@ -257,7 +257,7 @@ def tune_banded(
     call) of ``seq`` against itself timed as in ``tune_v2``. Returns the
     ``banded`` sub-entry {"tileBy", "tileBx", "_at_rows", "_gcups"}."""
     from ..ops import strip_cuda
-    from ..parallel.giant2 import band_geometry, giant2_fill
+    from ..parallel.giant2 import fill_plan, giant2_fill
     from ..parallel.mesh import default_mesh
 
     dev = resolve_device(device)
@@ -277,15 +277,12 @@ def tune_banded(
                 if verbose:
                     print(f"  banded {tag}: GATE FAIL", file=sys.stderr)
                 continue
-            geo = band_geometry(AlgParams({"tileBy": [R], "tileBx": [TW]}),
-                                [n], [n], 1)
-            _, _, bc, BL = geo
-            y = _padded(seq, BL * R, dev)
-            x = _padded(seq, bc, dev)
+            plan = fill_plan(AlgParams({"tileBy": [R], "tileBx": [TW]}),
+                             [n], [n], 1)
+            y, x = (t.to(dev) for t in plan.pad(seq, seq))
             ms = _fill_ms(lambda: giant2_fill(
                 subst_d, [y], [x], gapo, gape, [n + 1], [n + 1], mesh=mesh,
-                R=R, TW=TW, band_cols=bc, BL=BL, kind=kind, gap=gap),
-                dev, m_iters)
+                plan=plan, kind=kind, gap=gap), dev, m_iters)
             g = n * n / (ms * 1e-3) / 1e9
             if verbose:
                 print(f"  banded {tag}: {ms:.4f} ms, {g:.2f} GCUPS",

@@ -8,11 +8,15 @@ resident blocks a SM), whose rate is the card's (GCUPS or Gops). Times
 follow the two-point recipe, (T(M2) - T(M1)) / (M2 - M1) over M iterations
 or columns, timed with CUDA events after a head start of the card (so the
 reps run back to back), so launch overhead and each strip's ramp drop
-out. Each rate is also given as a share of the card's instruction issue
-rate, 132 SMs x 128 lanes x 1.98 GHz (``ISSUE_INSNS_PER_S``, PERF.md
-§2), in one unit: the instructions the card issues, a step of each
-elementwise body (``BODY_INSNS``, ``INT16_INSNS``) and a cell of each DP
-recurrence (``INSNS_PER_CELL``).
+out. Each rate is also given as a share of the card's peak for its
+instructions, in one unit, the instructions the card issues: a step of
+each elementwise body (``BODY_INSNS``, ``INT16_INSNS``) and a cell of
+each DP recurrence (``INSNS_PER_CELL``). The peak is the card's
+instruction issue rate, 132 SMs x 128 lanes x 1.98 GHz
+(``ISSUE_INSNS_PER_S``, PERF.md §2), for every body that mixes pipes;
+an elementwise body of one instruction is read against the one pipe that
+instruction issues on (``BODY_PEAK``; every int16 mode's VIADDMNMX on
+the int32 pipe, ``INT32_PIPE_INSNS_PER_S``).
 
   ops              per-body costs: int32 max+add (and the same in one DPX
                    __viaddmax_s32), a select, a shift+add, a warp rotation
@@ -75,6 +79,13 @@ from ..utils.device import card_info, resolve_device
 # a mix of them passes 64 lanes an SM (the strip skeletons read up to
 # 126% of that rate on the card).
 ISSUE_INSNS_PER_S = 132 * 128 * 1.98e9
+# The int32 pipe alone, 64 lanes an SM (132 x 64 x 1.98 GHz): the
+# throughput of 32-bit integer add, min/max, compare and shift on compute
+# capability 9.0 (the CUDA C++ Programming Guide's table of arithmetic
+# instruction throughput), the only pipe VIADDMNMX, SEL and LEA issue on.
+INT32_PIPE_INSNS_PER_S = 132 * 64 * 1.98e9
+# The warp shuffle, 32 results a clock an SM (the same table).
+SHFL_INSNS_PER_S = 132 * 32 * 1.98e9
 # int32 instructions a DP cell of the recurrence issues on sm_90a. Its
 # operations (linear gap: add diag, max up/left, add gap, max = 4; affine:
 # F and E (max, 2 adds each) and H (add, 2 max) = 9; SW adds the zero clamp
@@ -97,6 +108,17 @@ BODY_INSNS = {"maxadd2": 1, "viaddmax": 1, "select": 1, "shift_add2": 1,
 # fuses __vadd2 and __vmaxs2 into the DPX form too); int16x2 computes two
 # values an instruction.
 INT16_INSNS = {"i32": 1, "i16x2": 1, "i16x2_dpx": 1}
+# The peak each elementwise body is read against: a chain of one
+# instruction a step cannot pass the pipe that instruction issues on (its
+# opcode from ``sass_summary``): VIADDMNMX (maxadd2, viaddmax, and every
+# int16 mode of ``probe_int16``), SEL (select) and LEA (shift_add2) the
+# int32 pipe, SHFL the shuffle's; xwarp's shared store, load and barrier
+# the issue rate.
+BODY_PEAK = {"maxadd2": INT32_PIPE_INSNS_PER_S,
+             "viaddmax": INT32_PIPE_INSNS_PER_S,
+             "select": INT32_PIPE_INSNS_PER_S,
+             "shift_add2": INT32_PIPE_INSNS_PER_S,
+             "shfl": SHFL_INSNS_PER_S, "xwarp": ISSUE_INSNS_PER_S}
 INT16_LANES = {"i32": 1, "i16x2": 2, "i16x2_dpx": 2}
 GAPO, GAPE = -11, -2
 SEED = 20261017
@@ -199,10 +221,11 @@ def card_grid(dev: torch.device, kernel: str, sel: str, K: int, nt: int,
     return _sm_count(dev) * bps, dict(info, blocks_per_sm=bps)
 
 
-def _share(ops_per_s: float, dev: torch.device) -> Optional[float]:
-    """``ops_per_s`` over the card's issue rate; None on the CPU, where
-    the bound of the card means nothing."""
-    return ops_per_s / ISSUE_INSNS_PER_S if dev.type == "cuda" else None
+def _share(ops_per_s: float, dev: torch.device,
+           peak: float = ISSUE_INSNS_PER_S) -> Optional[float]:
+    """``ops_per_s`` over ``peak`` (by default the card's issue rate);
+    None on the CPU, where the bound of the card means nothing."""
+    return ops_per_s / peak if dev.type == "cuda" else None
 
 
 def _rng(tag: str) -> np.random.Generator:
@@ -251,9 +274,9 @@ def _rates(run_on: Callable[[int], Callable[[int], object]], blocks: int,
 
 def probe_ops(device=None) -> dict:
     """Per-body costs, 12 chains a thread: ns per chain step and per
-    instruction on one block, the card's instructions a second and share
-    of the issue rate, and one chain's latency a step (one block, one
-    chain a thread)."""
+    instruction on one block, the card's instructions a second and their
+    share of the body's pipe (``BODY_PEAK``), and one chain's latency a
+    step (one block, one chain a thread)."""
     dev = resolve_device(device)
     sz = sizes(dev)
     nt = sz.chain_threads
@@ -273,7 +296,7 @@ def probe_ops(device=None) -> dict:
             "ns_per_chain_step": step_ns, "ns_per_insn": step_ns / insns,
             "latency_ns": latency * 1e9, "insns": insns,
             "card_ginsns": card_insns / 1e9,
-            "peak_share": _share(card_insns, dev),
+            "peak_share": _share(card_insns, dev, BODY_PEAK[body]),
             "blocks": blocks, "threads": nt, **info,
         }
     return out
@@ -424,7 +447,8 @@ def probe_int16(device=None) -> dict:
             "ns_per_insn": step_ns / INT16_INSNS[mode],
             "lanes": INT16_LANES[mode],
             "card_lane_gops": steps * 2 * INT16_LANES[mode] / 1e9,
-            "peak_share": _share(steps * INT16_INSNS[mode], dev),
+            "peak_share": _share(steps * INT16_INSNS[mode], dev,
+                                 INT32_PIPE_INSNS_PER_S),
             "blocks": blocks, "threads": nt, **info,
         }
     return out

@@ -220,6 +220,9 @@ def align_pairs_batched(
         )
     if mesh is not None and device is not None:
         raise ValueError("pass a mesh or a device, not both")
+    if mesh is not None:
+        mesh.check_one_process("the batch engine (across processes: "
+                               "align_pairs_multihost)")
     devs = mesh.devices if mesh is not None else (resolve_device(device),)
     n = len(pairs)
     out = np.zeros((3, n), np.int32)  # costs, best_i, best_j

@@ -124,6 +124,7 @@ def align_giant_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult,
         return Status.errorInvalidValue
     if mesh is None:
         mesh = default_mesh(nw.device)
+    mesh.check_one_process("the portable giant engine")
     D = mesh.size
 
     sw = res.sw_align

@@ -6,17 +6,33 @@ giant pair (or of a stream of pairs) are split into D bands of
 and rows advance in passes of BL row blocks of R rows. Band k fills its
 columns with the banded pass (K7, ``ops/banded_cuda.py``: the CUDA
 kernel on a card, its plain version on the CPU); the only traffic between
-bands is the halo, the right edge of band k's pass handed to band k + 1:
+bands is the halo, the right edge of band k's call handed to band k + 1:
 its top corner, its H column and, for affine specs, its E column
-(B·R + 1 + B·R int32).
+(B·R + 1 + B·R int32 for a call of B row blocks).
 
-Schedule. With D > 1, pass t - k of band k runs at step t, each band on a
-stream of its own, and the halo copy into band k + 1's device waits on a
-CUDA event recorded after band k's pass (on the CPU the same order runs
-in one thread). The pass height changes no output, so with D = 1, where
-every halo is the matrix's own left column, each pair's band is one K7
-call. Every K7 call is one launch (its row strips pipelined on the card),
-so D > 1 costs one launch a pass.
+Schedule. A K7 call of a band holds C passes, its C·BL row strips
+pipelined on the card in one launch; the last call of a pair may hold
+fewer, and no call crosses a pair's edge. Call c of band k runs at step
+c + k, each band on a stream of its own, and waits, through a CUDA event,
+for call c of band k - 1 and for nothing else: its halo is that call's
+right edge over the same rows (on the CPU the same order runs in one
+thread). The call height changes no output. With D = 1 every halo is the
+matrix's own left column, so each pair's band is one call; with D > 1,
+``pick_call_passes`` trades the pipeline's depth (n_calls + D - 1 calls)
+against a call's length (its strips' trail), and a band makes one launch
+a call. ``fill_plan`` gives the whole layout and schedule (``FillPlan``:
+the geometry below, each pair's passes, C and the calls a band), which
+the engine, its callers and its reports share.
+
+Processes. A mesh may span the processes of a torch.distributed group
+(``parallel/mesh.py``): each process fills its own bands, the halo of
+each call crosses a process edge over the group (gloo, staged through
+pinned host memory on a card: a blocking send after the call's event, a
+blocking receive, then a copy onto the receiving band's device; the halo
+only flows rightward, so sends and receives in step order cannot
+deadlock), and after the fill every process gathers every band's grids
+(``all_gather``), as the JAX engine replicates its outputs, so that every
+process stores, traces and hashes the same result.
 
 Geometry is the JAX package's off-TPU branch, so the sparse layout
 matches its engine tile for tile, padded tile rows included: R, TW, K
@@ -37,7 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +119,92 @@ def pick_kb(n_blocks, K: int, D: int, *, R: int, W: int,
     return best_kb
 
 
+# The trail of one row strip of a K7 call behind the strip above it, in
+# column steps: 156.9 (nw_lg) and 168.6 (nw_ag) on an NVIDIA H100 80GB
+# HBM3 (PERF.md §5; ``bench/vpu_probe.py::probe_gridcost``, K1's strips,
+# the loop K7 shares).
+LAG_STEPS = 160
+
+
+def call_model_steps(n_passes: Sequence[int], C: int, D: int, *, BL: int,
+                     band_cols: int) -> int:
+    """Column steps of the band pipeline with calls of C passes: a call
+    sweeps its band's columns while its C·BL row strips trail one another
+    by ``LAG_STEPS`` each, and band k's call c starts when band k - 1's
+    call c is done, so the pipeline runs n_calls + D - 1 calls deep."""
+    n_calls = sum(_cdiv(p, C) for p in n_passes)
+    return (n_calls + D - 1) * (band_cols + (C * BL - 1) * LAG_STEPS)
+
+
+def pick_call_passes(n_pass, D: int, *, BL: int, band_cols: int) -> int:
+    """Passes a K7 call of a band holds (C): with D = 1 every halo is known
+    in advance and a call is a whole pair; with D > 1 the C that
+    minimizes ``call_model_steps`` (the smallest of equals). n_pass: the
+    passes of a pair, an int, or a sequence for a stream of pairs."""
+    nps = [n_pass] if isinstance(n_pass, int) else list(n_pass)
+    if D == 1:
+        return max(nps)
+    return min(range(1, max(nps) + 1), key=lambda c: call_model_steps(
+        nps, c, D, BL=BL, band_cols=band_cols))
+
+
+class FillPlan(NamedTuple):
+    """A fill's layout and schedule on D bands: row blocks of R rows,
+    column tiles of TW, bands of ``band_cols`` columns, passes of BL
+    blocks, ``n_pass[i]`` passes for pair i, and K7 calls of C passes."""
+
+    D: int
+    R: int
+    TW: int
+    band_cols: int
+    BL: int
+    n_pass: Tuple[int, ...]
+    C: int
+
+    @property
+    def calls(self) -> int:
+        """K7 calls a band makes: no call crosses a pair's edge."""
+        return sum(_cdiv(p, self.C) for p in self.n_pass)
+
+    @property
+    def model_steps(self) -> int:
+        return call_model_steps(self.n_pass, self.C, self.D, BL=self.BL,
+                                band_cols=self.band_cols)
+
+    def pad(self, y: np.ndarray, x: np.ndarray, i: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pair i's letters (header element first) zero-padded to its
+        passes' rows and to the D bands' columns, on the host."""
+        yp = np.zeros(1 + self.n_pass[i] * self.BL * self.R, np.int32)
+        xp = np.zeros(1 + self.D * self.band_cols, np.int32)
+        yp[:len(y)] = y
+        xp[:len(x)] = x
+        return torch.from_numpy(yp), torch.from_numpy(xp)
+
+
+def schedule(D: int, R: int, TW: int, band_cols: int, BL: int,
+             n_pass: Sequence[int]) -> FillPlan:
+    """The plan of a given geometry, its call height from
+    ``pick_call_passes``."""
+    n_pass = tuple(n_pass)
+    return FillPlan(D, R, TW, band_cols, BL, n_pass, pick_call_passes(
+        n_pass, D, BL=BL, band_cols=band_cols))
+
+
+def fill_plan(pr: AlgParams, rows: Sequence[int], cols: Sequence[int],
+              D: int, spec: Optional[AlignSpec] = None,
+              device: Optional[torch.device] = None) -> Optional[FillPlan]:
+    """The engine's plan for pairs of ``rows`` x ``cols`` residues on D
+    bands (``band_geometry``, then ``schedule``), or None for an invalid
+    param combination."""
+    geo = band_geometry(pr, rows, cols, D, spec, device)
+    if geo is None:
+        return None
+    R, TW, band_cols, BL = geo
+    return schedule(D, R, TW, band_cols, BL,
+                    [_cdiv(_cdiv(max(r, 1), R), BL) for r in rows])
+
+
 def _tile_params(pr: AlgParams, spec: Optional[AlignSpec] = None,
                  device: Optional[torch.device] = None
                  ) -> Tuple[int, int, int]:
@@ -155,44 +257,54 @@ def band_geometry(pr: AlgParams, rows: Sequence[int],
 def giant2_fill(subst: torch.Tensor, ys: Sequence[torch.Tensor],
                 xs: Sequence[torch.Tensor], gapo: int, gape: int,
                 adjrs: Sequence[int], adjcs: Sequence[int], *, mesh: Mesh,
-                R: int, TW: int, band_cols: int, BL: int, kind: str = "nw",
-                gap: str = "linear") -> List[Bands]:
-    """Banded fill of one pair or a stream of pairs over the mesh.
+                plan: FillPlan, kind: str = "nw", gap: str = "linear"
+                ) -> List[Bands]:
+    """Banded fill of one pair or a stream of pairs over the mesh, laid
+    out and scheduled by ``plan`` (its D the mesh's size).
 
     ys[i]: (1 + n_pass_i*BL*R,) pair i's row letters, header element
     first, zero-padded; xs[i]: (1 + D*band_cols,) its column letters
-    likewise; adjrs/adjcs: the true lengths with the header. All pairs
-    share the spec, costs and substitution matrix. Inputs are copied once
-    to every distinct device of the mesh.
+    likewise (``plan.pad``); adjrs/adjcs: the true lengths with the
+    header. All pairs share the spec, costs and substitution matrix; over
+    a mesh that spans processes every process passes the same inputs.
+    Inputs are copied once to every distinct device of this process.
 
-    Returns, per pair and per band k (on mesh.devices[k]), the band's
-    header grids in ``banded_plain``'s layout over the pair's B = n_pass·
-    BL row blocks: hrows/frows (B+1, 1+band_cols), hcols/ecols (B, R,
-    1+band_cols/TW), and for SW "best" (calls, 3): each K7 call's best
-    cell in the pair's coordinates (value 0 where the call had none). The
-    work is queued on the devices' current streams; nothing waits for it.
+    Returns, per pair and per band of this process (band mesh.first + j
+    on mesh.devices[j]), the band's header grids in ``banded_plain``'s
+    layout over the pair's B = n_pass·BL row blocks: hrows/frows (B+1,
+    1+band_cols), hcols/ecols (B, R, 1+band_cols/TW), and for SW "best"
+    (calls, 3): each K7 call's best cell in the pair's coordinates (value
+    0 where the call had none). The work is queued on the devices'
+    current streams; nothing waits for it, except the sends of halos to
+    the next process.
     """
-    D = mesh.size
-    devs = mesh.devices
+    mesh.check_group()
+    D, first, devs = mesh.size, mesh.first, mesh.devices
+    if plan.D != D or len(plan.n_pass) != len(ys):
+        raise ValueError(f"a plan of {plan.D} bands and {len(plan.n_pass)} "
+                         f"pairs for {D} bands and {len(ys)} pairs")
+    R, TW, band_cols, BL, n_pass, C = plan[1:]
     affine, is_sw = gap == "affine", kind == "sw"
+    cuda = devs[0].type == "cuda"
     jtE = band_cols // TW
     kw = dict(tile_h=R, tile_w=TW, kind=kind, gap=gap)
     n = len(ys)
-    n_pass = [(y.numel() - 1) // (BL * R) for y in ys]
+    calls = [(i, pl, min(C, n_pass[i] - pl))
+             for i in range(n) for pl in range(0, n_pass[i], C)]
     i32 = dict(dtype=torch.int32)
 
     on = {dev: (subst.to(dev), [y.to(dev) for y in ys],
                 [x.to(dev) for x in xs]) for dev in dict.fromkeys(devs)}
     hdr = edge_row(D * band_cols + 1, gapo, gape, kind, gap,
                    torch.device("cpu"))
-    prev0 = [hdr[k * band_cols:(k + 1) * band_cols + 1].to(devs[k])
-             for k in range(D)]
+    prev0 = [hdr[k * band_cols:(k + 1) * band_cols + 1].to(dev)
+             for k, dev in enumerate(devs, first)]
     prevF0 = [torch.full((band_cols + 1,), NEG_INF_I32, **i32, device=dev)
               if affine else None for dev in devs]
     out = [[banded_cuda.alloc_band(n_pass[i] * BL, band_cols, R, TW, gap,
-                                   devs[k]) for k in range(D)]
+                                   dev) for dev in devs]
            for i in range(n)]
-    bests = [[[] for _ in range(D)] for _ in range(n)]
+    bests = [[[] for _ in devs] for _ in range(n)]
 
     def left_edge(row0: int, rows: int):
         """Band 0's halo: the matrix's own left column; E there is -inf."""
@@ -204,76 +316,131 @@ def giant2_fill(subst: torch.Tensor, ys: Sequence[torch.Tensor],
              if affine else None)
         return h, e
 
-    def run(i: int, k: int, pl: int, nblk: int, haloH, haloE):
-        """nblk row blocks of pair i's band k from pass pl on."""
-        sub, yd, xd = on[devs[k]]
-        row0, c0 = pl * BL * R, k * band_cols
+    def run(i: int, j: int, pl: int, nblk: int, haloH, haloE):
+        """nblk row blocks of pair i's band first + j from pass pl on."""
+        sub, yd, xd = on[devs[j]]
+        row0, c0 = pl * BL * R, (first + j) * band_cols
         b0 = pl * BL
-        grid = out[i][k]
+        grid = out[i][j]
         view = {name: t[b0:b0 + nblk + (name in ("hrows", "frows"))]
                 for name, t in grid.items()}
         top = pl == 0
         got = banded_cuda.banded_pass(
             sub, yd[i][row0:row0 + nblk * R + 1],
             xd[i][c0:c0 + band_cols + 1], gapo, gape,
-            prev0[k] if top else grid["hrows"][b0],
-            (prevF0[k] if top else grid["frows"][b0]) if affine else None,
+            prev0[j] if top else grid["hrows"][b0],
+            (prevF0[j] if top else grid["frows"][b0]) if affine else None,
             haloH, haloE, adjrs[i] - row0, adjcs[i] - c0, out=view, **kw)
         if is_sw:
             best = got.pop("best").clone()
             best[1] += row0
             best[2] += c0
-            bests[i][k].append(best)
+            bests[i][j].append(best)
         return view
 
-    if D == 1:
-        for i in range(n):
-            run(i, 0, 0, n_pass[i] * BL, *left_edge(0, n_pass[i] * BL * R))
-    else:
-        passes = [(i, pl) for i in range(n) for pl in range(n_pass[i])]
-        cuda = devs[0].type == "cuda"
-        streams = [torch.cuda.Stream(dev) for dev in devs] if cuda else None
-        if cuda:
-            for dev, s in zip(devs, streams):
-                s.wait_stream(torch.cuda.current_stream(dev))
-        # Halo messages and their events, kept until every band is done.
-        msgs = [[None] * len(passes) for _ in range(D)]
-        done = [[None] * len(passes) for _ in range(D)]
-        for t in range(len(passes) + D - 1):
-            for k in range(D):
-                p = t - k
-                if not 0 <= p < len(passes):
-                    continue
-                i, pl = passes[p]
-                ctx = (torch.cuda.stream(streams[k]) if cuda
-                       else contextlib.nullcontext())
-                with ctx:
-                    if k == 0:
-                        haloH, haloE = left_edge(pl * BL * R, BL * R)
+    streams = [torch.cuda.Stream(dev) for dev in devs] if cuda else None
+    if cuda:
+        for dev, st in zip(devs, streams):
+            st.wait_stream(torch.cuda.current_stream(dev))
+    # Halo messages for the band to the right in this process, on its
+    # device, and the events recorded after them, by call; each is
+    # dropped once the reading stream has it queued (record_stream keeps
+    # its memory until that stream is done).
+    msgs = [{} for _ in devs]
+    done = [{} for _ in devs]
+    for t in range(len(calls) + D - 1):
+        for j, k in enumerate(range(first, first + len(devs))):
+            c = t - k
+            if not 0 <= c < len(calls):
+                continue
+            i, pl, cnt = calls[c]
+            rows = cnt * BL * R
+            ctx = (torch.cuda.stream(streams[j]) if cuda
+                   else contextlib.nullcontext())
+            with ctx:
+                if k == 0:
+                    haloH, haloE = left_edge(pl * BL * R, rows)
+                else:
+                    if j == 0:  # the left band is the previous process's
+                        msg = _recv_halo(rows + 1 + rows * affine,
+                                         mesh.rank - 1, devs[0])
                     else:
+                        msg = msgs[j - 1].pop(c)
                         if cuda:
-                            streams[k].wait_event(done[k - 1][p])
-                        msg = msgs[k - 1][p].to(devs[k])
-                        haloH = msg[:BL * R + 1]
-                        haloE = msg[BL * R + 1:] if affine else None
-                    view = run(i, k, pl, BL, haloH, haloE)
-                    if k + 1 < D:
-                        parts = [view["hrows"][0, band_cols:],
-                                 view["hcols"][:, :, jtE].reshape(-1)]
-                        if affine:
-                            parts.append(view["ecols"][:, :, jtE].reshape(-1))
-                        msgs[k][p] = torch.cat(parts)
-                    if cuda:
-                        done[k][p] = torch.cuda.Event()
-                        done[k][p].record(streams[k])
-        if cuda:
-            for dev, s in zip(devs, streams):
-                torch.cuda.current_stream(dev).wait_stream(s)
+                            streams[j].wait_event(done[j - 1].pop(c))
+                            msg.record_stream(streams[j])
+                    haloH = msg[:rows + 1]
+                    haloE = msg[rows + 1:] if affine else None
+                view = run(i, j, pl, cnt * BL, haloH, haloE)
+                if k + 1 == D:
+                    continue
+                parts = [view["hrows"][0, band_cols:],
+                         view["hcols"][:, :, jtE].reshape(-1)]
+                if affine:
+                    parts.append(view["ecols"][:, :, jtE].reshape(-1))
+                msg = torch.cat(parts)
+                if j + 1 == len(devs):
+                    _send_halo(msg, mesh.rank + 1)
+                    continue
+                # A copy between cards runs here, on this band's stream.
+                msgs[j][c] = msg.to(devs[j + 1])
+                if cuda:
+                    done[j][c] = torch.cuda.Event()
+                    done[j][c].record(streams[j])
+    if cuda:
+        for dev, st in zip(devs, streams):
+            torch.cuda.current_stream(dev).wait_stream(st)
 
     if is_sw:
         for i in range(n):
-            for k in range(D):
-                out[i][k]["best"] = torch.stack(bests[i][k])
+            for j in range(len(devs)):
+                out[i][j]["best"] = torch.stack(bests[i][j])
+    return out
+
+
+def _send_halo(msg: torch.Tensor, dst: int) -> None:
+    """A call's halo to the process ``dst`` holding the next band, once the
+    call is done: through pinned host memory from a card."""
+    import torch.distributed as dist
+
+    if msg.device.type == "cuda":
+        host = torch.empty(msg.numel(), dtype=torch.int32, pin_memory=True)
+        host.copy_(msg, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        ready.synchronize()
+        msg = host
+    dist.send(msg, dst)
+
+
+def _recv_halo(size: int, src: int, dev: torch.device) -> torch.Tensor:
+    """A call's halo of ``size`` values from the process ``src`` holding the
+    band to the left, on ``dev`` (copied on its current stream)."""
+    import torch.distributed as dist
+
+    host = torch.empty(size, dtype=torch.int32,
+                       pin_memory=dev.type == "cuda")
+    dist.recv(host, src)
+    return host.to(dev, non_blocking=True)
+
+
+def replicate_bands(mesh: Mesh, bands: List[Dict[str, np.ndarray]]
+                    ) -> List[Dict[str, np.ndarray]]:
+    """One pair's band grids of this process (host arrays) as every band's,
+    in band order, on every process of the mesh (``all_gather``: every
+    band's grids have one shape). The bands themselves for a
+    one-process mesh."""
+    if mesh.processes == 1:
+        return bands
+    import torch.distributed as dist
+
+    out = [{} for _ in range(mesh.size)]
+    for name in bands[0]:
+        local = torch.from_numpy(np.stack([b[name] for b in bands]))
+        parts = [torch.empty_like(local) for _ in range(mesh.processes)]
+        dist.all_gather(parts, local)
+        for k, a in enumerate(torch.cat(parts).numpy()):
+            out[k][name] = a
     return out
 
 
@@ -307,24 +474,16 @@ def gather_bands(bands: List[Dict[str, np.ndarray]], *, band_cols: int,
 
 
 def _gathered_to_sparse(nw: AlgInput, res: AlgResult,
-                        bands: List[Dict[str, np.ndarray]], *, R: int,
-                        TW: int, band_cols: int) -> Status:
+                        bands: List[Dict[str, np.ndarray]],
+                        plan: FillPlan) -> Status:
     """One pair's band grids into the reference sparse layout, stored
     through ``_mlsp_store``. Shared by the single-pair engine and the
     stream."""
-    g = gather_bands(bands, band_cols=band_cols, tile_w=TW)
+    g = gather_bands(bands, band_cols=plan.band_cols, tile_w=plan.TW)
     B, tcols = g["hcols"].shape[0], g["hcols"].shape[2]
-    return _mlsp_store(nw, res, g["hrows"], g["hcols"], R, TW, B, tcols,
-                       frows=g.get("frows"), ecols=g.get("ecols"),
+    return _mlsp_store(nw, res, g["hrows"], g["hcols"], plan.R, plan.TW, B,
+                       tcols, frows=g.get("frows"), ecols=g.get("ecols"),
                        best=g.get("best"))
-
-
-def _pad_pair(nw: AlgInput, rows_p: int, cols_p: int):
-    y = np.zeros(1 + rows_p, np.int32)
-    x = np.zeros(1 + cols_p, np.int32)
-    y[: nw.adjrows] = nw.seqY
-    x[: nw.adjcols] = nw.seqX
-    return torch.from_numpy(y), torch.from_numpy(x)
 
 
 def _to_host(bands: Bands) -> List[Dict[str, np.ndarray]]:
@@ -335,9 +494,10 @@ def align_giant2(pr: AlgParams, nw: AlgInput, res: AlgResult,
                  mesh: Optional[Mesh] = None) -> Status:
     """Registry-shaped align fn of the giant engine, any spec, over
     ``mesh`` (default: ``nw.device`` alone, D = 1; more bands take an
-    explicit mesh): pads, runs the banded fill, and stores the reference
-    sparse layout so that the sparse trace, hash and align_cost run
-    unchanged."""
+    explicit mesh, which may span processes: each process then passes the
+    same pair and gets the same result): pads, runs the banded fill, and
+    stores the reference sparse layout so that the sparse trace, hash and
+    align_cost run unchanged."""
     spec = nw.spec
     affine = spec.gap == GapKind.AFFINE
     if affine and (nw.gapo_cost > 0 or nw.gape_cost > 0):
@@ -348,13 +508,11 @@ def align_giant2(pr: AlgParams, nw: AlgInput, res: AlgResult,
 
     sw = res.sw_align
     sw.start()
-    geo = band_geometry(pr, [nw.adjrows - 1], [nw.adjcols - 1], D, spec,
-                        mesh.devices[0])
-    if geo is None:
+    plan = fill_plan(pr, [nw.adjrows - 1], [nw.adjcols - 1], D, spec,
+                     mesh.devices[0])
+    if plan is None:
         return Status.errorInvalidValue
-    R, TW, band_cols, BL = geo
-    n_pass = _cdiv(_cdiv(max(nw.adjrows - 1, 1), R), BL)
-    y, x = _pad_pair(nw, n_pass * BL * R, D * band_cols)
+    y, x = plan.pad(nw.seqY, nw.seqX)
     sw.lap("align.alloc")
 
     dev0 = mesh.devices[0]
@@ -366,24 +524,25 @@ def align_giant2(pr: AlgParams, nw: AlgInput, res: AlgResult,
 
     out = giant2_fill(
         subst_d, [y_d], [x_d], nw.gapo_cost, nw.gape_cost, [nw.adjrows],
-        [nw.adjcols], mesh=mesh, R=R, TW=TW, band_cols=band_cols, BL=BL,
-        kind=spec.kind.value, gap=spec.gap.value)
+        [nw.adjcols], mesh=mesh, plan=plan, kind=spec.kind.value,
+        gap=spec.gap.value)
     synchronize_mesh(mesh)
     sw.lap("align.calc")
 
     bands = _to_host(out[0])
-    sw.lap("align.cpy_host")
     nw.note_device_alloc(sum(v.nbytes for b in bands for v in b.values()))
-    return _gathered_to_sparse(nw, res, bands, R=R, TW=TW,
-                               band_cols=band_cols)
+    bands = replicate_bands(mesh, bands)
+    sw.lap("align.cpy_host")
+    return _gathered_to_sparse(nw, res, bands, plan)
 
 
 def align_giant2_stream(pr: AlgParams, inputs: "list[AlgInput]",
                         results: "list[AlgResult]",
                         mesh: Optional[Mesh] = None) -> "list[Status]":
     """Align a stream of giant pairs through one pipelined banded fill:
-    with D > 1 the fill and drain of the band pipeline (D - 1 steps) is
-    paid once per stream, not once per pair. Every pair is padded to the
+    with D > 1 the fill and drain of the band pipeline (D - 1 calls) is
+    paid once per stream, not once per pair. The mesh may span processes,
+    as ``align_giant2``'s. Every pair is padded to the
     widest pair's band, so at D = 1, with no pipeline to fill, one
     ``align_giant2`` call a pair does less work.
 
@@ -422,15 +581,12 @@ def align_giant2_stream(pr: AlgParams, inputs: "list[AlgInput]",
             res_i.sw_align.add_ms(name, (now - t_ref) * 1e3 * float(sh))
         t_ref = now
 
-    geo = band_geometry(pr, [nw.adjrows - 1 for nw in inputs],
-                        [nw.adjcols - 1 for nw in inputs], D, spec,
-                        mesh.devices[0])
-    if geo is None:
+    plan = fill_plan(pr, [nw.adjrows - 1 for nw in inputs],
+                     [nw.adjcols - 1 for nw in inputs], D, spec,
+                     mesh.devices[0])
+    if plan is None:
         return [Status.errorInvalidValue] * n
-    R, TW, band_cols, BL = geo
-    np_l = [_cdiv(_cdiv(max(nw.adjrows - 1, 1), R), BL) for nw in inputs]
-    padded = [_pad_pair(nw, p * BL * R, D * band_cols)
-              for nw, p in zip(inputs, np_l)]
+    padded = [plan.pad(nw.seqY, nw.seqX, i) for i, nw in enumerate(inputs)]
     lap_all("align.alloc")
 
     dev0 = mesh.devices[0]
@@ -443,20 +599,20 @@ def align_giant2_stream(pr: AlgParams, inputs: "list[AlgInput]",
 
     out = giant2_fill(
         subst_d, ys, xs, gapo, gape, [nw.adjrows for nw in inputs],
-        [nw.adjcols for nw in inputs], mesh=mesh, R=R, TW=TW,
-        band_cols=band_cols, BL=BL, kind=spec.kind.value,
-        gap=spec.gap.value)
+        [nw.adjcols for nw in inputs], mesh=mesh, plan=plan,
+        kind=spec.kind.value, gap=spec.gap.value)
     synchronize_mesh(mesh)
     lap_all("align.calc")
 
     host = [_to_host(bands) for bands in out]
+    for nw, bands in zip(inputs, host):
+        nw.note_device_alloc(sum(v.nbytes for b in bands for v in b.values()))
+    host = [replicate_bands(mesh, bands) for bands in host]
     lap_all("align.cpy_host")
 
     stats = []
     for nw, res, bands in zip(inputs, results, host):
-        nw.note_device_alloc(sum(v.nbytes for b in bands for v in b.values()))
-        stats.append(_gathered_to_sparse(nw, res, bands, R=R, TW=TW,
-                                         band_cols=band_cols))
+        stats.append(_gathered_to_sparse(nw, res, bands, plan))
     return stats
 
 

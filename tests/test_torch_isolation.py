@@ -18,6 +18,7 @@ from gpuseqalign_tpu_torch.bench import (
     fuzz,
     giant_demo,
     headline,
+    scaling_report,
     vpu_probe,
 )
 from gpuseqalign_tpu_torch.bench.cli import main
@@ -79,7 +80,8 @@ print(json.dumps({"mods": mods, "loaded": sorted(sys.modules)}))
                 "bench.vpu_probe", "bench.headline", "ops.wavefront",
                 "ops.wavefront_cuda", "ops.wavefront_plain",
                 "ops.strip_cuda", "ops.tiny_cuda", "ops.tuned",
-                "bench.fuzz", "bench.autotune", "bench.giant_demo"):
+                "bench.fuzz", "bench.autotune", "bench.giant_demo",
+                "bench.scaling_report"):
         assert f"gpuseqalign_tpu_torch.{mod}" in got["mods"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
@@ -91,7 +93,8 @@ def no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["cli", "vpu_probe", "headline", "fuzz",
-                                   "autotune", "giant_demo"])
+                                   "autotune", "giant_demo",
+                                   "scaling_report"])
 def test_main_without_device_raises_without_cuda(tmp_path, no_cuda, entry):
     params = tmp_path / "params.json"
     params.write_text(json.dumps({"cpu1_st_row": {}}))
@@ -112,11 +115,13 @@ def test_main_without_device_raises_without_cuda(tmp_path, no_cuda, entry):
             "--pair", "len31", "len33",
         ],
         "giant_demo": ["300", "nw_ag"],
+        "scaling_report": ["--quick"],
     }[entry]
     entry_main = {"cli": main, "vpu_probe": vpu_probe.main,
                   "headline": headline.main, "fuzz": fuzz.main,
                   "autotune": autotune.main,
-                  "giant_demo": giant_demo.main}[entry]
+                  "giant_demo": giant_demo.main,
+                  "scaling_report": scaling_report.main}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_main(argv)
 
