@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..utils.spans import span
 from ..utils.stopwatch import Stopwatch
 
 
@@ -255,13 +256,16 @@ class AlgInput:
         self.device_peak_bytes = max(self.device_peak_bytes, nbytes)
 
     def reset_cycle(self) -> None:
-        """Per-(pair,param,repeat) reset (ref: resetAllocsBenchmarkCycle)."""
-        self.score = None
-        self.tileHrowMat = None
-        self.tileHcolMat = None
-        self.tileFrowMat = None
-        self.tileEcolMat = None
-        self.trace = None
+        """Per-(pair,param,repeat) reset (ref: resetAllocsBenchmarkCycle);
+        the freeing of the headers' host copies is the span
+        ``align.reset``."""
+        with span("align.reset"):
+            self.score = None
+            self.tileHrowMat = None
+            self.tileHcolMat = None
+            self.tileFrowMat = None
+            self.tileEcolMat = None
+            self.trace = None
         # Peaks are PER-CYCLE (the reference recomputes allocation totals
         # after each cycle reset): without this, a small pair benchmarked
         # after a large one reports the large pair's footprint in its

@@ -7,6 +7,14 @@ Port of gpuseqalign_tpu's ``ops/pallas_kernels.py`` (``_mlsp_setup``,
 its plain PyTorch version when it lies on the CPU, and nothing else.
 Outputs are converted to the reference sparse layout
 (ref: src/nwalign_gpu7_mlsp_diagdiag.cu:348-352).
+
+``align_mlsp``'s host flow is tiled by profiler spans (``utils.spans``:
+open only while a profiler records), in order:
+``align.setup`` (the tile, with the tuned cache's read), ``align.alloc``,
+``align.cpy_dev``, ``align.calc``, ``align.cpy_host`` (each also the
+stopwatch lap of its name) and ``align.store``, which holds
+``align.store.headers`` (the tile-major header copies) and
+``align.store.last_tile`` (the last tile's recompute for the cost).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from ..core.types import (
 )
 from ..trace.sparse import align_tile, align_tile_full, get_tile_and_elem_ij
 from ..utils.device import resolve_device, synchronize
+from ..utils.spans import span
 from . import mlsp_cuda, tuned
 
 # Default tile where the card's tuned cache (``ops/tuned.py``) has none,
@@ -85,14 +94,16 @@ def _mlsp_store(nw: AlgInput, res: AlgResult, hrows: np.ndarray,
             n_tiles, tile_h)
         return mat
 
-    nw.tileHrowMat = tile_rows(hrows)
-    nw.tileHcolMat = tile_cols(nw.tileHrowMat[:, 0], hcols)
-    if affine:
-        nw.tileFrowMat = tile_rows(frows)
-        # E of a tile's top-left corner belongs to the header row above it;
-        # it is never read by the within-tile recompute (row 0 is given),
-        # so the corner element only needs a consistent value.
-        nw.tileEcolMat = tile_cols(np.int32(NEG_INF_I32), ecols)
+    with span("align.store.headers"):
+        nw.tileHrowMat = tile_rows(hrows)
+        nw.tileHcolMat = tile_cols(nw.tileHrowMat[:, 0], hcols)
+        if affine:
+            nw.tileFrowMat = tile_rows(frows)
+            # E of a tile's top-left corner belongs to the header row
+            # above it; it is never read by the within-tile recompute (row
+            # 0 is given), so the corner element only needs a consistent
+            # value.
+            nw.tileEcolMat = tile_cols(np.int32(NEG_INF_I32), ecols)
     res.update_peak_mem(nw)
 
     if best is not None:
@@ -102,14 +113,16 @@ def _mlsp_store(nw: AlgInput, res: AlgResult, hrows: np.ndarray,
         return Status.success
 
     # align_cost: host recompute of the bottom-right tile.
-    co = get_tile_and_elem_ij(nw, nw.adjrows - 1, nw.adjcols - 1)
-    if nw.spec.kind == AlignKind.NW and nw.spec.gap == GapKind.LINEAR:
-        tile = np.zeros((nw.tile_hcol_len, nw.tile_hrow_len), dtype=np.int32)
-        align_tile(tile, nw, co)
-        res.align_cost = int(tile[co.i_elem, co.j_elem])
-    else:
-        mats = align_tile_full(nw, co)
-        res.align_cost = int(mats["H"][co.i_elem, co.j_elem])
+    with span("align.store.last_tile"):
+        co = get_tile_and_elem_ij(nw, nw.adjrows - 1, nw.adjcols - 1)
+        if nw.spec.kind == AlignKind.NW and nw.spec.gap == GapKind.LINEAR:
+            tile = np.zeros((nw.tile_hcol_len, nw.tile_hrow_len),
+                            dtype=np.int32)
+            align_tile(tile, nw, co)
+            res.align_cost = int(tile[co.i_elem, co.j_elem])
+        else:
+            mats = align_tile_full(nw, co)
+            res.align_cost = int(mats["H"][co.i_elem, co.j_elem])
     return Status.success
 
 
@@ -123,41 +136,45 @@ def align_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult) -> Status:
     same layout. The TPU tuning keys (kChains, winW, packedx, packedef,
     rematHdr, noBc, subProw) are accepted and ignored.
     """
-    setup = _mlsp_setup(pr, nw)
-    if setup is None:
-        return Status.errorInvalidValue
-    tile_h, tile_w, trows, tcols = setup
-    spec = nw.spec
-    if spec.gap == GapKind.AFFINE and (nw.gapo_cost > 0 or nw.gape_cost > 0):
-        return Status.errorInvalidValue  # the fill's Gotoh needs costs <= 0
-    dev = resolve_device(nw.device)
+    with span("align.setup"):
+        setup = _mlsp_setup(pr, nw)
+        if setup is None:
+            return Status.errorInvalidValue
+        tile_h, tile_w, trows, tcols = setup
+        spec = nw.spec
+        if spec.gap == GapKind.AFFINE and (nw.gapo_cost > 0
+                                           or nw.gape_cost > 0):
+            # the fill's Gotoh needs costs <= 0
+            return Status.errorInvalidValue
+        dev = resolve_device(nw.device)
 
     sw = res.sw_align
     sw.start()
-    y = np.zeros(1 + trows * tile_h, np.int32)
-    x = np.zeros(1 + tcols * tile_w, np.int32)
-    y[: nw.adjrows] = nw.seqY
-    x[: nw.adjcols] = nw.seqX
-    sw.lap("align.alloc")
+    with sw.phase("align.alloc"):
+        y = np.zeros(1 + trows * tile_h, np.int32)
+        x = np.zeros(1 + tcols * tile_w, np.int32)
+        y[: nw.adjrows] = nw.seqY
+        x[: nw.adjcols] = nw.seqX
 
-    subst_d = torch.from_numpy(np.ascontiguousarray(nw.subst)).to(dev)
-    y_d = torch.from_numpy(y).to(dev)
-    x_d = torch.from_numpy(x).to(dev)
-    synchronize(dev)
-    sw.lap("align.cpy_dev")
+    with sw.phase("align.cpy_dev"):
+        subst_d = torch.from_numpy(np.ascontiguousarray(nw.subst)).to(dev)
+        y_d = torch.from_numpy(y).to(dev)
+        x_d = torch.from_numpy(x).to(dev)
+        synchronize(dev)
 
-    out_d = mlsp_cuda.mlsp_fill(
-        subst_d, y_d, x_d, nw.gapo_cost, nw.gape_cost, nw.adjrows,
-        nw.adjcols, tile_h=tile_h, tile_w=tile_w, kind=spec.kind.value,
-        gap=spec.gap.value,
-    )
-    synchronize(dev)
-    sw.lap("align.calc")
-    out = {k: v.cpu().numpy() for k, v in out_d.items()}
-    sw.lap("align.cpy_host")
-    nw.note_device_alloc(sum(int(v.nbytes) for v in out.values()))
-    return _mlsp_store(
-        nw, res, out["hrows"], out["hcols"], tile_h, tile_w, trows, tcols,
-        frows=out.get("frows"), ecols=out.get("ecols"),
-        best=out.get("best"),
-    )
+    with sw.phase("align.calc"):
+        out_d = mlsp_cuda.mlsp_fill(
+            subst_d, y_d, x_d, nw.gapo_cost, nw.gape_cost, nw.adjrows,
+            nw.adjcols, tile_h=tile_h, tile_w=tile_w, kind=spec.kind.value,
+            gap=spec.gap.value,
+        )
+        synchronize(dev)
+    with sw.phase("align.cpy_host"):
+        out = {k: v.cpu().numpy() for k, v in out_d.items()}
+    with span("align.store"):
+        nw.note_device_alloc(sum(int(v.nbytes) for v in out.values()))
+        return _mlsp_store(
+            nw, res, out["hrows"], out["hcols"], tile_h, tile_w, trows,
+            tcols, frows=out.get("frows"), ecols=out.get("ecols"),
+            best=out.get("best"),
+        )

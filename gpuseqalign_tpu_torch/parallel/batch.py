@@ -38,6 +38,7 @@ from torch.profiler import record_function
 from ..core.types import AlignKind, AlignSpec, GapKind
 from ..ops import batch_cuda
 from ..utils.device import resolve_device
+from ..utils.spans import span
 from .mesh import Mesh
 
 # Buckets at least this tall take the batched tile fill, shorter ones the
@@ -163,8 +164,9 @@ def stack_bucket(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     np.concatenate(xlist, out=buf[2 * b + ny:])
     dev = host.to(device, non_blocking=True)
     adjrs, adjcs = dev[:b], dev[b:2 * b]
-    ys = _pad_rows(dev[2 * b:2 * b + ny], adjrs, 1 + rows_p)
-    xs = _pad_rows(dev[2 * b + ny:], adjcs, 1 + cols_p)
+    with span("batch.pad_rows"):
+        ys = _pad_rows(dev[2 * b:2 * b + ny], adjrs, 1 + rows_p)
+        xs = _pad_rows(dev[2 * b + ny:], adjcs, 1 + cols_p)
     return ys, xs, adjrs, adjcs
 
 
@@ -172,24 +174,28 @@ def bucket_scores(spec: AlignSpec, subst: torch.Tensor, ys: torch.Tensor,
                   xs: torch.Tensor, adjrs: torch.Tensor, adjcs: torch.Tensor,
                   gapo: int, gape: int) -> torch.Tensor:
     """(3, b) int32 [costs, best_i, best_j] of one stacked bucket of pairs
-    with adjr, adjc >= 2, through the kernel ``fill_route`` picks."""
+    with adjr, adjc >= 2, through the kernel ``fill_route`` picks; the
+    kernel's wrapper call is the span ``batch.<route>``."""
     rows_p, cols_p = ys.shape[1] - 1, xs.shape[1] - 1
     kw = dict(kind=spec.kind.value, gap=spec.gap.value)
     sms = None
     if ys.device.type == "cuda":
         sms = torch.cuda.get_device_properties(ys.device).multi_processor_count
     if fill_route(rows_p, ys.shape[0], sms) == "fill":
-        out = batch_cuda.mlsp_fill_batch(
-            subst, ys, xs, gapo, gape, adjrs, adjcs,
-            tile_h=math.gcd(rows_p, 128), tile_w=math.gcd(cols_p, 512),
-            **kw)
+        with span("batch.fill"):
+            out = batch_cuda.mlsp_fill_batch(
+                subst, ys, xs, gapo, gape, adjrs, adjcs,
+                tile_h=math.gcd(rows_p, 128), tile_w=math.gcd(cols_p, 512),
+                **kw)
         if "best" in out:
             return torch.cat([out["cost"].view(1, -1),
                               out["best"][:, 1:].t()])
         return torch.stack([out["cost"], torch.zeros_like(out["cost"]),
                             torch.zeros_like(out["cost"])])
-    return torch.stack(batch_cuda.tiny_scores(
-        subst, ys, xs, gapo, gape, adjrs, adjcs, **kw))
+    with span("batch.tiny"):
+        out = batch_cuda.tiny_scores(subst, ys, xs, gapo, gape, adjrs,
+                                     adjcs, **kw)
+    return torch.stack(out)
 
 
 def align_pairs_batched(
@@ -208,8 +214,25 @@ def align_pairs_batched(
     ``device`` None means the CUDA card (RuntimeError without one); with a
     mesh it must be None. Each bucket share is copied to its device once
     and its (cost, best) copied back once; the host waits for the devices
-    only after the last bucket. The host steps are torch.profiler spans
-    named ``batch.*``.
+    only after the last bucket.
+
+    Every host step is a torch.profiler span; a child lies inside its
+    parent, and the loop's own bookkeeping alone runs outside them. The
+    four steps (``bucket_pairs``, ``stack_bucket``, ``bucket_scores``,
+    ``gather``) are ``record_function`` spans always, which a caller can
+    time by wrapping ``record_function`` with no profiler running; the
+    rest are ``utils.spans.span``, open only while a profiler records:
+
+      batch.bucket_pairs       the buckets and the pairs' lengths
+      batch.subst              the substitution matrix to each device
+      per bucket share:
+        batch.stack_bucket     the pinned host buffer and its one copy
+          batch.pad_rows       the padding on the device
+        batch.bucket_scores    the route and the answers' assembly
+          batch.fill | batch.tiny   the wrapper of the route taken
+          batch.copy_back      the answers into a pinned host buffer (a
+                               card; empty elsewhere)
+      batch.gather             the wait for the devices, the answers out
     """
     if spec.gap == GapKind.AFFINE and (gapo > 0 or gape > 0):
         # Same domain guard as align_pallas_mlsp / the oracle: the
@@ -230,8 +253,9 @@ def align_pairs_batched(
         buckets = bucket_pairs(pairs, quantum)
         lens = np.array([(len(y), len(x)) for y, x in pairs],
                         np.int64).reshape(n, 2)
-    subst_h = torch.from_numpy(np.ascontiguousarray(subst, np.int32))
-    subst_d = {dev: subst_h.to(dev) for dev in dict.fromkeys(devs)}
+    with span("batch.subst"):
+        subst_h = torch.from_numpy(np.ascontiguousarray(subst, np.int32))
+        subst_d = {dev: subst_h.to(dev) for dev in dict.fromkeys(devs)}
 
     pending = []
     for (rows_p, cols_p), idxs in buckets.items():
@@ -248,10 +272,11 @@ def align_pairs_batched(
                 stacked = stack_bucket(pairs, live, rows_p, cols_p, dev)
             with record_function("batch.bucket_scores"):
                 res = bucket_scores(spec, subst_d[dev], *stacked, gapo, gape)
-                if dev.type == "cuda":
-                    host = torch.empty(res.shape, dtype=torch.int32,
-                                       pin_memory=True)
-                    res = host.copy_(res, non_blocking=True)
+                with span("batch.copy_back"):
+                    if dev.type == "cuda":
+                        host = torch.empty(res.shape, dtype=torch.int32,
+                                           pin_memory=True)
+                        res = host.copy_(res, non_blocking=True)
             pending.append((live, res))
     with record_function("batch.gather"):
         for dev in dict.fromkeys(devs):

@@ -10,12 +10,19 @@ On the card the caller is responsible for bounding laps with
 ``torch.cuda.synchronize()`` so device work lands in the right phase —
 the analog of the reference's cudaDeviceSynchronize between phases
 (ref: src/nwalign_gpu3_ml_diagdiag.cu:425,576).
+
+``phase(name)`` is a lap that is also a ``torch.profiler`` span of the
+same name while a profiler records (``spans.span``), so that a trace and
+the laps split a flow the same way.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, Iterator, Optional
+
+from .spans import span
 
 
 class Stopwatch:
@@ -34,6 +41,14 @@ class Stopwatch:
         self._laps[name] = self._laps.get(name, 0.0) + elapsed_ms
         self._start = now
 
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        """A ``span(name)`` over the block, which laps ``name`` when it
+        leaves."""
+        with span(name):
+            yield
+            self.lap(name)
+
     def add_ms(self, name: str, ms: float) -> None:
         """Directly account time measured externally (e.g. device timers)."""
         self._laps[name] = self._laps.get(name, 0.0) + ms
@@ -43,13 +58,6 @@ class Stopwatch:
 
     def laps(self) -> Dict[str, float]:
         return dict(self._laps)
-
-    def total(self) -> float:
-        return sum(self._laps.values())
-
-    def reset(self) -> None:
-        self._start = None
-        self._laps.clear()
 
     @staticmethod
     def combine(sws: Iterable["Stopwatch"]) -> "Stopwatch":

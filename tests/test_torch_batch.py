@@ -9,6 +9,7 @@ output is int32 and must be identical.
 
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -335,8 +336,58 @@ def test_engine_steps_are_profiler_spans(blosum62):
         align_pairs_batched(AlignSpec.from_name("nw_lg"), blosum62, pairs,
                             GAPO, device="cpu")
     names = {e.key for e in prof.key_averages()}
-    assert {"batch.bucket_pairs", "batch.stack_bucket", "batch.bucket_scores",
-            "batch.gather"} <= names
+    assert {"batch.bucket_pairs", "batch.subst", "batch.stack_bucket",
+            "batch.pad_rows", "batch.bucket_scores", "batch.tiny",
+            "batch.copy_back", "batch.gather"} <= names
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_bucket_route_is_a_span_inside_its_step(blosum62, monkeypatch,
+                                                spec):
+    """While a profiler records (here: the flag the spans read), each
+    bucket's kernel call is the span of its route, ``batch.fill`` for a
+    bucket of rows_p >= 1024 and ``batch.tiny`` for a short one (on the
+    CPU ``fill_route`` decides by height), once a bucket whatever its
+    pairs, inside the bucket's ``batch.bucket_scores`` beside
+    ``batch.copy_back``; ``batch.pad_rows`` lies inside
+    ``batch.stack_bucket``."""
+    from torch.autograd.profiler import record_function
+
+    spans = []  # (name, start, end) of every span, host clock
+    enter, leave = record_function.__enter__, record_function.__exit__
+
+    def timed_enter(rf):
+        rf.t0 = time.perf_counter_ns()
+        return enter(rf)
+
+    def timed_exit(rf, *exc):
+        out = leave(rf, *exc)
+        spans.append((rf.name, rf.t0, time.perf_counter_ns()))
+        return out
+
+    monkeypatch.setattr(record_function, "__enter__", timed_enter)
+    monkeypatch.setattr(record_function, "__exit__", timed_exit)
+    monkeypatch.setattr(torch.autograd, "_profiler_enabled", lambda: True)
+    rng = np.random.default_rng(9)
+    pairs = [_pair(rng, r, c) for r, c in
+             ((1000, 3), (20, 30), (40, 50), (0, 4))]
+    res = align_pairs_batched(AlignSpec.from_name(spec), blosum62, pairs,
+                              GAPO, GAPE, quantum=256, device="cpu")
+
+    def within(parent, name):
+        return [s[0] for s in spans if s[0] == name
+                and parent[1] <= s[1] and s[2] <= parent[2]]
+
+    routes = ("batch.fill", "batch.tiny")
+    scores = [s for s in spans if s[0] == "batch.bucket_scores"]
+    stacks = [s for s in spans if s[0] == "batch.stack_bucket"]
+    assert [[r for n in routes for r in within(s, n)] for s in scores] == [
+        ["batch.fill"], ["batch.tiny"]]
+    assert [len(within(s, "batch.copy_back")) for s in scores] == [1, 1]
+    assert [len(within(s, "batch.pad_rows")) for s in stacks] == [1, 1]
+    assert sum(s[0] in routes + ("batch.pad_rows", "batch.copy_back")
+               for s in spans) == 6
+    assert res.n_buckets == 2
 
 
 def test_throughput_streaming_on_cpu(tmp_path, capsys):

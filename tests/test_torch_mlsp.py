@@ -325,3 +325,90 @@ def test_trace_at_tile_corner_matches_oracle(name, mirror):
     assert res.edit_trace == transcript
     assert res.trace_hash == thash
     assert res.score_hash == oracle_hash_dense(mats["H"])
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_align_host_flow_is_tiled_by_spans(blosum62, spec):
+    """The registry's align gives the ``align.*`` spans: the six steps in
+    order, one after the other, every torch operator of the align inside
+    one of them, and the store's parts inside ``align.store``: the header
+    copies, and for NW the last tile's recompute (SW takes its cost from
+    the fill's best cell), eight spans in all; the reset after it is the
+    span ``align.reset``. The stopwatch keeps the four laps it had."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = ["align.setup", "align.alloc", "align.cpy_dev", "align.calc",
+             "align.cpy_host", "align.store"]
+    parts = ["align.store.headers"]
+    if spec.startswith("nw"):
+        parts.append("align.store.last_tile")
+    alg = get_algorithm_map()["tpu7_pallas_mlsp"]
+    y, x = _seqs(11, 30, 70)
+    nw = make_alg_input(blosum62, y, x, GAPO, GAPE, spec, device="cpu")
+    res = AlgResult()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        stat = alg.align(AlgParams(_tiles(16, 32)), nw, res)
+        cost, rows = res.align_cost, nw.tile_hdr_mat_rows
+        nw.reset_cycle()
+    assert stat == Status.success and rows == 2
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    spans = [e for e in events if e.name.startswith("align.")]
+    assert [e.name for e in spans[-1:]] == ["align.reset"]
+    spans = spans[:-1]
+    assert sorted(e.name for e in spans) == sorted(steps + parts)
+    top = [e for e in spans if e.name in steps]
+    assert [e.name for e in top] == steps
+    for a, b in zip(top, top[1:]):
+        # One after the other: only the stopwatch's bookkeeping between.
+        assert 0 <= b.time_range.start - a.time_range.end < 20e3  # us
+    store = top[-1].time_range
+    for e in spans:
+        if e.name.startswith("align.store."):
+            assert store.start <= e.time_range.start
+            assert e.time_range.end <= store.end
+    ops = [e for e in events if e.name.startswith("aten::")]
+    assert ops
+    for op in ops:
+        assert any(s.time_range.start <= op.time_range.start
+                   and op.time_range.end <= s.time_range.end
+                   for s in top), op.name
+    assert list(res.sw_align.laps()) == [
+        "align.alloc", "align.cpy_dev", "align.calc", "align.cpy_host"]
+    aspec = jax_types.AlignSpec.from_name(spec)
+    assert cost == align_cost_of(
+        aspec, oracle_align_dense(aspec, blosum62, y, x, GAPO, GAPE))
+
+
+def test_stopwatch_phase_is_a_span_and_a_lap(monkeypatch):
+    """``Stopwatch.phase`` laps its name when the block leaves (adding to
+    a lap of the same name), inside a ``record_function`` span of that
+    name while a profiler records and no span otherwise, and laps nothing
+    when the block raises."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gpuseqalign_tpu_torch.utils.stopwatch import Stopwatch
+
+    names = []
+    enter = record_function.__enter__
+
+    def named_enter(rf):
+        names.append(rf.name)
+        return enter(rf)
+
+    monkeypatch.setattr(record_function, "__enter__", named_enter)
+    sw = Stopwatch()
+    sw.start()
+    with sw.phase("a"):
+        pass
+    assert names == [] and list(sw.laps()) == ["a"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        with sw.phase("b"):
+            pass
+        with sw.phase("a"):
+            pass
+        with pytest.raises(KeyError):
+            with sw.phase("c"):
+                raise KeyError("c")
+    assert names == ["b", "a", "c"]
+    assert list(sw.laps()) == ["a", "b"]
+    assert all(ms >= 0 for ms in sw.laps().values())
