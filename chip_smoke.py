@@ -63,7 +63,9 @@ Phases, each of which makes the script exit non-zero if it fails:
                 launches a fill: K1's pair entry in turns with the batch
                 entry's route (mlsp_fill_batch with headers, one pair), K3
                 at its default schedule and swept over strip heights and
-                warps a block; then the
+                warps a block; tests/test_torch_mlsp_card.py (the
+                tile headers' hand-off: pinned, counted, equal to the CPU
+                align's, every spec); then the
                 pair through the v1 flows (wavefront.align_mlsp at 128x512,
                 wavefront.align_dense at R 1024) in the registry's sparse
                 and dense bundles, cost, score hash and trace hash equal
@@ -2799,6 +2801,20 @@ def main() -> int:
                 f"{ab['batch'][1]:.3f}, {ab['pair'][1]:.3f}")
             del got, warp_got, want
         times["full_kernels"] = time.perf_counter() - t0
+
+        # ... and the single-pair flow's header hand-off, every spec.
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-q",
+             "-p", "no:cacheprovider",
+             os.path.join(HERE, "tests", "test_torch_mlsp_card.py")],
+            cwd=HERE, capture_output=True, text=True, timeout=1800)
+        last = (out.stdout.strip().splitlines() or [""])[-1]
+        if out.returncode != 0:
+            fail(f"test_torch_mlsp_card.py: exit {out.returncode}: "
+                 f"{out.stdout[-3000:]}{out.stderr[-2000:]}")
+        times["full_headers"] = time.perf_counter() - t0
+        log(f"phase full-size header hand-off: {last}")
 
         # ... and K3 against its plain version, every spec.
         t0 = time.perf_counter()

@@ -12,12 +12,20 @@ Outputs are converted to the reference sparse layout
 open only while a profiler records), in order:
 ``align.setup`` (the tile, with the tuned cache's read), ``align.alloc``,
 ``align.cpy_dev``, ``align.calc``, ``align.cpy_host`` (each also the
-stopwatch lap of its name) and ``align.store``, which holds
-``align.store.headers`` (the tile-major header copies) and
-``align.store.last_tile`` (the last tile's recompute for the cost).
+stopwatch lap of its name; ``align.cpy_host`` lays the headers out
+tile-major where the fill left them and brings them to the host,
+``tile_headers``) and ``align.store``, which holds ``align.store.headers``
+(the host arrays attached to the input) and ``align.store.last_tile`` (the
+last tile's recompute for the cost).
+
+``PINNED_COPIES`` counts the aligns whose headers came back from the card
+through pinned host memory, so a run can show that the copy engaged.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Dict
 
 import numpy as np
 import torch
@@ -40,6 +48,8 @@ from . import mlsp_cuda, tuned
 # and always on the CPU.
 TILE_H_DEFAULT, TILE_W_DEFAULT = 128, 512
 
+PINNED_COPIES = 0
+
 
 def _mlsp_setup(pr: AlgParams, nw: AlgInput):
     tile_h_def, tile_w_def = tuned.tuned_tile(
@@ -55,57 +65,95 @@ def _mlsp_setup(pr: AlgParams, nw: AlgInput):
     return tile_h, tile_w, trows, tcols
 
 
-def _mlsp_store(nw: AlgInput, res: AlgResult, hrows: np.ndarray,
-                hcols: np.ndarray, tile_h: int, tile_w: int,
-                trows: int, tcols: int,
-                frows: "np.ndarray | None" = None,
-                ecols: "np.ndarray | None" = None,
-                best: "np.ndarray | None" = None) -> Status:
-    """Convert fill outputs to the reference sparse layout
-    (ref: src/nwalign_gpu7_mlsp_diagdiag.cu:348-352) and recompute the last
-    tile on host for align_cost (ref: ...gpu7...cu:619-622).
+def tile_headers(hrows, hcols, tile_h: int, tile_w: int, trows: int,
+                 tcols: int, frows=None, ecols=None, best=None
+                 ) -> Dict[str, np.ndarray]:
+    """The fill's headers in the reference sparse layout
+    (ref: src/nwalign_gpu7_mlsp_diagdiag.cu:348-352), as host arrays under
+    ``AlgInput``'s names: ``tileHrowMat``, ``tileHcolMat`` and, with
+    frows/ecols, ``tileFrowMat``, ``tileEcolMat``; and SW's ``best``
+    (value, i, j) when given.
 
-    frows/ecols carry the affine extension's F-top-row / E-left-col headers
-    (same indexing as hrows/hcols); best is SW's (value, i, j) argmax.
+    The inputs are tensors on one device, or numpy arrays: hrows[it] =
+    padded row it*tile_h (width >= 1 + tcols*tile_w), hcols[it, r, jt] =
+    H[it*tile_h + 1 + r, jt*tile_w]; frows/ecols the same for F and E.
+    The matrices are laid out where the inputs lie, in one flat buffer.
+    From the card that buffer comes back in one copy into pinned memory of
+    torch's caching host allocator: the block goes back to the allocator
+    when the last of the arrays is dropped, so no two calls share one.
+    """
+    global PINNED_COPIES
+    src = {k: torch.as_tensor(v) for k, v in (
+        ("hrows", hrows), ("hcols", hcols), ("frows", frows),
+        ("ecols", ecols), ("best", best)) if v is not None}
+    n_tiles = trows * tcols
+    shapes = {"tileHrowMat": (n_tiles, 1 + tile_w),
+              "tileHcolMat": (n_tiles, 1 + tile_h)}
+    if "frows" in src:
+        shapes["tileFrowMat"] = (n_tiles, 1 + tile_w)
+        shapes["tileEcolMat"] = (n_tiles, 1 + tile_h)
+    if "best" in src:
+        shapes["best"] = (3,)
+    sizes = [math.prod(shape) for shape in shapes.values()]
+
+    def views(flat):
+        return {k: part.view(shape) for (k, shape), part
+                in zip(shapes.items(), flat.split(sizes))}
+
+    dev = src["hrows"].device
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    mats = views(buf)
+
+    def tile_rows(dst, rows):
+        # tile (it, jt)'s top row: the tile_w + 1 values from jt*tile_w.
+        dst.view(trows, tcols, 1 + tile_w).copy_(
+            rows[:trows, :tcols * tile_w + 1].unfold(1, tile_w + 1, tile_w))
+
+    def tile_cols(dst, corner, cols):
+        dst = dst.view(trows, tcols, 1 + tile_h)
+        dst[:, :, 0] = corner
+        dst[:, :, 1:].copy_(cols[:trows, :, :tcols].transpose(1, 2))
+
+    tile_rows(mats["tileHrowMat"], src["hrows"])
+    tile_cols(mats["tileHcolMat"],
+              src["hrows"][:trows, :tcols * tile_w:tile_w], src["hcols"])
+    if "frows" in src:
+        tile_rows(mats["tileFrowMat"], src["frows"])
+        # E of a tile's top-left corner belongs to the header row above
+        # it; it is never read by the within-tile recompute (row 0 is
+        # given), so the corner element only needs a consistent value.
+        tile_cols(mats["tileEcolMat"], NEG_INF_I32, src["ecols"])
+    if "best" in src:
+        mats["best"].copy_(src["best"])
+    if dev.type == "cuda":
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+        synchronize(dev)
+        PINNED_COPIES += 1
+        mats = views(host)
+    return {k: v.numpy() for k, v in mats.items()}
+
+
+def _mlsp_store(nw: AlgInput, res: AlgResult, mats: Dict[str, np.ndarray],
+                tile_h: int, tile_w: int, trows: int, tcols: int) -> Status:
+    """Attach the tile-major headers (``tile_headers``' host arrays) to
+    ``nw`` (ref: src/nwalign_gpu7_mlsp_diagdiag.cu:348-352) and recompute
+    the last tile on host for align_cost (ref: ...gpu7...cu:619-622); SW
+    takes its cost and best cell from ``mats["best"]``.
     """
     nw.tile_hdr_mat_rows = trows
     nw.tile_hdr_mat_cols = tcols
     nw.tile_hrow_len = 1 + tile_w
     nw.tile_hcol_len = 1 + tile_h
 
-    n_tiles = trows * tcols
-    affine = frows is not None
-
-    # hrows[it] = padded row it*tile_h (width >= 1 + tcols*tile_w), and
-    # tile (it, jt)'s top row is its tile_w + 1 values from jt*tile_w: a
-    # strided window view, copied once into the tile-major mat.
-    # hcols[it, r, jt] = H[it*tile_h + 1 + r, jt*tile_w].
-    def tile_rows(rows):
-        win = np.lib.stride_tricks.sliding_window_view(
-            rows[:trows, :tcols * tile_w + 1], tile_w + 1, axis=1)
-        mat = np.empty((trows, tcols, tile_w + 1), dtype=np.int32)
-        mat[...] = win[:, ::tile_w]
-        return mat.reshape(n_tiles, tile_w + 1)
-
-    def tile_cols(first, cols):
-        mat = np.empty((n_tiles, 1 + tile_h), dtype=np.int32)
-        mat[:, 0] = first
-        mat[:, 1:] = np.swapaxes(cols[:trows, :, :tcols], 1, 2).reshape(
-            n_tiles, tile_h)
-        return mat
-
     with span("align.store.headers"):
-        nw.tileHrowMat = tile_rows(hrows)
-        nw.tileHcolMat = tile_cols(nw.tileHrowMat[:, 0], hcols)
-        if affine:
-            nw.tileFrowMat = tile_rows(frows)
-            # E of a tile's top-left corner belongs to the header row
-            # above it; it is never read by the within-tile recompute (row
-            # 0 is given), so the corner element only needs a consistent
-            # value.
-            nw.tileEcolMat = tile_cols(np.int32(NEG_INF_I32), ecols)
+        nw.tileHrowMat = mats["tileHrowMat"]
+        nw.tileHcolMat = mats["tileHcolMat"]
+        nw.tileFrowMat = mats.get("tileFrowMat")
+        nw.tileEcolMat = mats.get("tileEcolMat")
     res.update_peak_mem(nw)
 
+    best = mats.get("best")
     if best is not None:
         res.align_cost = int(best[0])
         nw.best_i = int(best[1])
@@ -170,11 +218,12 @@ def align_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult) -> Status:
         )
         synchronize(dev)
     with sw.phase("align.cpy_host"):
-        out = {k: v.cpu().numpy() for k, v in out_d.items()}
+        mats = tile_headers(
+            out_d["hrows"], out_d["hcols"], tile_h, tile_w, trows, tcols,
+            frows=out_d.get("frows"), ecols=out_d.get("ecols"),
+            best=out_d.get("best"))
     with span("align.store"):
-        nw.note_device_alloc(sum(int(v.nbytes) for v in out.values()))
-        return _mlsp_store(
-            nw, res, out["hrows"], out["hcols"], tile_h, tile_w, trows,
-            tcols, frows=out.get("frows"), ecols=out.get("ecols"),
-            best=out.get("best"),
-        )
+        # The card holds the fill's outputs and their tile-major copy.
+        nw.note_device_alloc(sum(int(v.nbytes) for v in out_d.values())
+                             + sum(int(v.nbytes) for v in mats.values()))
+        return _mlsp_store(nw, res, mats, tile_h, tile_w, trows, tcols)

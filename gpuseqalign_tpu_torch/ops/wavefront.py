@@ -37,7 +37,7 @@ from ..core.types import (
 from ..utils.device import resolve_device, synchronize
 from . import wavefront_cuda
 from .dense_kernels import _finish_dense_from_device
-from .mlsp_kernels import _mlsp_setup, _mlsp_store
+from .mlsp_kernels import _mlsp_setup, _mlsp_store, tile_headers
 from .skew import skew_rows, unskew_cols
 
 
@@ -194,7 +194,7 @@ def align_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult,
     sw.lap("align.cpy_host")
     nw.note_device_alloc(int(hrow.nbytes + hcol.nbytes))
 
-    # The generic (hrows, hcols) form of _mlsp_store: hrows[it] = row
+    # The generic (hrows, hcols) form of tile_headers: hrows[it] = row
     # it*R; hcols[it, r, jt] = H[it*R + 1 + r, jt*TW].
     g = nw.gapo_cost
     width = cols_p + 1
@@ -207,4 +207,6 @@ def align_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult,
     # hcol[b, jt] holds column jt*TW for jt >= 1.
     hc = hcol.reshape(trows, -1, R)
     hcols[:, :, 1:] = np.transpose(hc[:, 1:tcols, :], (0, 2, 1))
-    return _mlsp_store(nw, res, hrows, hcols, tile_h, tile_w, trows, tcols)
+    return _mlsp_store(
+        nw, res, tile_headers(hrows, hcols, tile_h, tile_w, trows, tcols),
+        tile_h, tile_w, trows, tcols)

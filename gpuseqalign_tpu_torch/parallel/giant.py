@@ -38,7 +38,7 @@ from ..core.types import (
     GapKind,
     Status,
 )
-from ..ops.mlsp_kernels import _mlsp_store
+from ..ops.mlsp_kernels import _mlsp_store, tile_headers
 from ..ops.mlsp_plain import row_step
 from .mesh import Mesh, default_mesh, synchronize_mesh
 
@@ -160,7 +160,7 @@ def align_giant_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult,
     sw.lap("align.cpy_host")
     nw.note_device_alloc(int(hrows_g.nbytes + hcols_g.nbytes))
 
-    # The generic (hrows, hcols) form of _mlsp_store with tile BH x Wb:
+    # The generic (hrows, hcols) form of tile_headers with tile BH x Wb:
     #   hrows[it] = full row it*BH (with the header column), 1 + cols_p
     #   hcols[it, r, jt] = H[it*BH + 1 + r, jt*Wb]
     g = nw.gapo_cost
@@ -179,7 +179,8 @@ def align_giant_mlsp(pr: AlgParams, nw: AlgInput, res: AlgResult,
         # hcols_g[i, k, 1:] = H[i*BH+1 .. (i+1)*BH, (k+1)*Wb]; jt = k+1.
         hcols[:, :, 1:] = np.transpose(hcols_g[:, : D - 1, 1:], (0, 2, 1))
 
-    stat = _mlsp_store(nw, res, hrows, hcols, BH, Wb, nb, D)
+    stat = _mlsp_store(nw, res, tile_headers(hrows, hcols, BH, Wb, nb, D),
+                       BH, Wb, nb, D)
     if stat != Status.success:
         return stat
     if res.align_cost != cost:

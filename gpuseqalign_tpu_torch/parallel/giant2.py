@@ -70,7 +70,7 @@ from ..core.types import (
 )
 from ..ops import banded_cuda, tuned
 from ..ops.mlsp_cuda import tile_best
-from ..ops.mlsp_kernels import _mlsp_store
+from ..ops.mlsp_kernels import _mlsp_store, tile_headers
 from ..ops.mlsp_plain import edge_col, edge_row
 from .mesh import Mesh, default_mesh, synchronize_mesh
 
@@ -481,9 +481,10 @@ def _gathered_to_sparse(nw: AlgInput, res: AlgResult,
     stream."""
     g = gather_bands(bands, band_cols=plan.band_cols, tile_w=plan.TW)
     B, tcols = g["hcols"].shape[0], g["hcols"].shape[2]
-    return _mlsp_store(nw, res, g["hrows"], g["hcols"], plan.R, plan.TW, B,
-                       tcols, frows=g.get("frows"), ecols=g.get("ecols"),
-                       best=g.get("best"))
+    mats = tile_headers(g["hrows"], g["hcols"], plan.R, plan.TW, B, tcols,
+                        frows=g.get("frows"), ecols=g.get("ecols"),
+                        best=g.get("best"))
+    return _mlsp_store(nw, res, mats, plan.R, plan.TW, B, tcols)
 
 
 def _to_host(bands: Bands) -> List[Dict[str, np.ndarray]]:

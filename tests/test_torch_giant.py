@@ -40,7 +40,7 @@ from gpuseqalign_tpu_torch.core.types import (
 )
 from gpuseqalign_tpu_torch.ops import banded_cuda
 from gpuseqalign_tpu_torch.ops.banded_plain import banded_pass_plain
-from gpuseqalign_tpu_torch.ops.mlsp_kernels import _mlsp_store
+from gpuseqalign_tpu_torch.ops.mlsp_kernels import _mlsp_store, tile_headers
 from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
 from gpuseqalign_tpu_torch.parallel import (
     align_giant2,
@@ -543,7 +543,7 @@ def test_multihost_two_processes(blosum62, tmp_path):
 
 def _store_loop(nw, hrows, hcols, th, tw, trows, tcols, frows=None,
                 ecols=None):
-    """The per-tile loop _mlsp_store ran before its strided form."""
+    """The per-tile loop the store ran before its strided form."""
     n_tiles = trows * tcols
     mats = {"tileHrowMat": np.zeros((n_tiles, 1 + tw), np.int32),
             "tileHcolMat": np.zeros((n_tiles, 1 + th), np.int32)}
@@ -570,9 +570,9 @@ def _store_loop(nw, hrows, hcols, th, tw, trows, tcols, frows=None,
     (4, 8, 3, 5, 0), (1, 1, 7, 9, 0), (16, 3, 2, 1, 4), (5, 2, 1, 6, 3)])
 def test_mlsp_store_matches_the_loop(blosum62, affine, th, tw, trows, tcols,
                                      extra):
-    """The strided _mlsp_store against its former per-tile loop on random
-    headers (rows wider than the tiles, by ``extra``, as the giant layout
-    may give)."""
+    """tile_headers and _mlsp_store against their former per-tile loop on
+    random headers (rows wider than the tiles, by ``extra``, as the giant
+    layout may give)."""
     rng = np.random.default_rng(th * 100 + tw)
     width = 1 + tcols * tw + extra
     hrows = rng.integers(-999, 999, (trows, width)).astype(np.int32)
@@ -586,8 +586,9 @@ def test_mlsp_store_matches_the_loop(blosum62, affine, th, tw, trows, tcols,
                         "sw_ag" if affine else "sw_lg", device="cpu")
     res = AlgResult()
     best = np.array([5, 1, 1], np.int32)
-    assert _mlsp_store(nw, res, hrows, hcols, th, tw, trows, tcols,
-                       frows=frows, ecols=ecols, best=best) == Status.success
+    mats = tile_headers(hrows, hcols, th, tw, trows, tcols, frows=frows,
+                        ecols=ecols, best=best)
+    assert _mlsp_store(nw, res, mats, th, tw, trows, tcols) == Status.success
     want = _store_loop(nw, hrows, hcols, th, tw, trows, tcols, frows, ecols)
     for name in MATS:
         got = getattr(nw, name)

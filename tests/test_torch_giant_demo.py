@@ -17,7 +17,7 @@ from gpuseqalign_tpu_torch.core.types import (
 )
 from gpuseqalign_tpu_torch.models.cpu_algs import align_cpu1_st_row
 from gpuseqalign_tpu_torch.ops import tuned
-from gpuseqalign_tpu_torch.ops.mlsp_kernels import _mlsp_store
+from gpuseqalign_tpu_torch.ops.mlsp_kernels import _mlsp_store, tile_headers
 
 LINE = re.compile(r"^nw_affine 300x300: \d+ ms  \d+\.\d GCUPS  sparse output "
                   r"\d+ MB \(dense would be \d+ GB\)$", re.M)
@@ -62,10 +62,12 @@ def test_the_fills_cost_is_cpu1s(spec):
                         device="cpu")
     res = AlgResult()
     th, tw = r["tile"]
-    assert _mlsp_store(nw, res, h["hrows"], h["hcols"], th, tw,
-                       h["hrows"].shape[0], h["hcols"].shape[2],
-                       frows=h.get("frows"), ecols=h.get("ecols"),
-                       best=h.get("best")) == Status.success
+    trows, tcols = h["hrows"].shape[0], h["hcols"].shape[2]
+    mats = tile_headers(h["hrows"], h["hcols"], th, tw, trows, tcols,
+                        frows=h.get("frows"), ecols=h.get("ecols"),
+                        best=h.get("best"))
+    assert _mlsp_store(nw, res, mats, th, tw, trows,
+                       tcols) == Status.success
     nwo = make_alg_input(subst, y, x, giant_demo.GAPO, gape, spec,
                          device="cpu")
     reso = AlgResult()

@@ -30,6 +30,7 @@ from gpuseqalign_tpu_torch.core.types import (
     make_alg_input,
 )
 from gpuseqalign_tpu_torch.ops import mlsp_cuda
+from gpuseqalign_tpu_torch.ops.mlsp_kernels import tile_headers
 from gpuseqalign_tpu_torch.ops.mlsp_plain import mlsp_fill_plain
 
 SPECS = ["nw_lg", "nw_ag", "sw_lg", "sw_ag"]
@@ -144,6 +145,86 @@ def test_port_matches_oracle(blosum62, spec, rows, cols, th, tw):
     assert res.edit_trace == transcript
     assert res.trace_hash == thash
     assert res.score_hash == oracle_hash_dense(mats["H"])
+
+
+def _numpy_tiles(out, th, tw, trows, tcols):
+    """The tile-major layout as the store once built it with numpy on the
+    host, from the fill's padded headers."""
+    n_tiles = trows * tcols
+
+    def tile_rows(rows):
+        win = np.lib.stride_tricks.sliding_window_view(
+            rows[:trows, :tcols * tw + 1], tw + 1, axis=1)
+        mat = np.empty((trows, tcols, tw + 1), dtype=np.int32)
+        mat[...] = win[:, ::tw]
+        return mat.reshape(n_tiles, tw + 1)
+
+    def tile_cols(first, cols):
+        mat = np.empty((n_tiles, 1 + th), dtype=np.int32)
+        mat[:, 0] = first
+        mat[:, 1:] = np.swapaxes(cols[:trows, :, :tcols], 1, 2).reshape(
+            n_tiles, th)
+        return mat
+
+    h = {k: v.numpy() for k, v in out.items()}
+    want = {"tileHrowMat": tile_rows(h["hrows"])}
+    want["tileHcolMat"] = tile_cols(want["tileHrowMat"][:, 0], h["hcols"])
+    if "frows" in h:
+        want["tileFrowMat"] = tile_rows(h["frows"])
+        want["tileEcolMat"] = tile_cols(np.int32(NEG_INF_I32), h["ecols"])
+    return want
+
+
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("rows,cols,th,tw", ORACLE_CASES)
+def test_tile_headers_match_the_numpy_layout(blosum62, spec, rows, cols, th,
+                                             tw):
+    """``tile_headers`` lays the fill's headers out tile-major exactly as
+    the store's numpy code did, and the registry's align attaches that
+    layout; two inputs aligned in turn, with no reset between, keep their
+    own, unchanged headers."""
+    kind, gap = spec.split("_")
+    gap = "affine" if gap == "ag" else "linear"
+    alg = get_algorithm_map()["tpu7_pallas_mlsp"]
+    nws, wants = [], []
+    for k in range(2):
+        y, x = _seqs(rows + 3 * cols + k, rows, cols)
+        yp, xp = _padded(y, x, th, tw)
+        out = mlsp_fill_plain(
+            torch.from_numpy(blosum62), torch.from_numpy(yp),
+            torch.from_numpy(xp), GAPO, GAPE, rows + 1, cols + 1,
+            tile_h=th, tile_w=tw, kind=kind, gap=gap,
+        )
+        trows, tcols = (len(yp) - 1) // th, (len(xp) - 1) // tw
+        want = _numpy_tiles(out, th, tw, trows, tcols)
+        got = tile_headers(out["hrows"], out["hcols"], th, tw, trows, tcols,
+                           frows=out.get("frows"), ecols=out.get("ecols"),
+                           best=out.get("best"))
+        assert sorted(got) == sorted([*want] + ["best"] * (kind == "sw"))
+        for name, mat in want.items():
+            assert got[name].dtype == np.int32, name
+            assert got[name].flags.c_contiguous, name
+            np.testing.assert_array_equal(got[name], mat, err_msg=name)
+        if kind == "sw":
+            np.testing.assert_array_equal(got["best"], out["best"].numpy())
+        nw = make_alg_input(blosum62, y, x, GAPO, GAPE, spec, device="cpu")
+        assert alg.align(AlgParams(_tiles(th, tw)), nw,
+                         AlgResult()) == Status.success
+        nws.append(nw)
+        wants.append(want)
+    for a in MATS:
+        for b in MATS:
+            if getattr(nws[0], a) is not None and getattr(nws[1], b) \
+                    is not None:
+                assert not np.shares_memory(getattr(nws[0], a),
+                                            getattr(nws[1], b)), (a, b)
+    for nw, want in zip(nws, wants):
+        for name in MATS:
+            if name not in want:
+                assert getattr(nw, name) is None, name
+                continue
+            np.testing.assert_array_equal(getattr(nw, name), want[name],
+                                          err_msg=name)
 
 
 def _padded(y, x, th, tw):
