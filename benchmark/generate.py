@@ -6,7 +6,16 @@ and how many distinct requests the pool holds:
 - ``{"all_vs_all": [L1, L2, ...]}``: one sequence of each length, and
   every pair (i, j) with i <= j of them, in that order (a sequence is
   aligned with itself too, as in upstream's pair files);
-- ``{"list": [[Ly, Lx], ...]}``: each pair's two sequences drawn apart.
+- ``{"list": [[Ly, Lx], ...]}``: each pair's two sequences drawn apart;
+- ``{"query_vs_db": {"queries": [Lq, ...], "subjects": [Ls, ...]}}``: a
+  database search. The subjects are drawn once and every request shares
+  those same arrays; request k aligns query ``queries[k]`` (the rows, y)
+  with every subject (the columns, x), in subject order. The pool holds
+  one request a query.
+
+A traffic file may also hold ``"tiny": {"pairs": {...}, "pool": n}``, in
+any of these forms: the cell's tiny twin, which the benchmark's own tests
+run on the CPU (``tests/conftest.py``); a run never reads it.
 
 Residues are uniform over the traffic's ``alphabet``, mapped to the
 configuration's letter indices. Every seed gives the same lengths in the
@@ -21,16 +30,6 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 Pair = Tuple[np.ndarray, np.ndarray]
-
-
-def shapes(traffic: Dict) -> List[Tuple[int, int]]:
-    """(rows, cols) of every pair of one request, in order."""
-    spec = traffic["pairs"]
-    if "all_vs_all" in spec:
-        lens = spec["all_vs_all"]
-        return [(lens[i], lens[j]) for i in range(len(lens))
-                for j in range(i, len(lens))]
-    return [(int(a), int(b)) for a, b in spec["list"]]
 
 
 def _letters(traffic: Dict, config: Dict) -> np.ndarray:
@@ -50,8 +49,18 @@ def make_pool(traffic: Dict, config: Dict, seed: int) -> List[List[Pair]]:
     rng = np.random.default_rng(seed % 2 ** 64)
     letters = _letters(traffic, config)
     spec = traffic["pairs"]
+    n_pool = int(traffic["pool"])
+    if "query_vs_db" in spec:
+        queries = spec["query_vs_db"]["queries"]
+        if n_pool != len(queries):
+            raise ValueError(f"pool {n_pool} != {len(queries)} queries: "
+                             "a database search holds one request a query")
+        subjects = [_draw(rng, letters, n)
+                    for n in spec["query_vs_db"]["subjects"]]
+        return [[(query, s) for s in subjects]
+                for query in (_draw(rng, letters, n) for n in queries)]
     pool = []
-    for _ in range(int(traffic["pool"])):
+    for _ in range(n_pool):
         if "all_vs_all" in spec:
             seqs = [_draw(rng, letters, n) for n in spec["all_vs_all"]]
             pairs = [(seqs[i], seqs[j]) for i in range(len(seqs))

@@ -8,8 +8,8 @@ Then requests go back to back, in pool order and round again, until
 first ``TRACE_SECONDS`` of the window are traced (``tracing``: the card's
 activity and the program's spans, no torch operator). After the window
 it reads the device's memory peak, frees the program's state, runs the
-plain reference once over every request of the pool and compares every
-answer of every call with it.
+plain reference once over every request of the pool, in chunks of
+bounded size, and compares every answer of every call with it.
 """
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ DEFAULT_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # With --trace 1, the profiler records the first seconds of the window
 # only: a longer trace costs more to read than a run may take.
 TRACE_SECONDS = 3.0
+# The reference's chunks hold at most this many padded elements a row of
+# the DP (pairs x (widest + 1)): its tensors of that size, several tens of
+# bytes an element together, then fit on the card at any pool size.
+REFERENCE_ELEMENTS = 2 ** 25
 
 
 @dataclasses.dataclass
@@ -204,13 +208,38 @@ def wrong_answers(calls: List[Call], reference: List[np.ndarray],
     return wrong
 
 
+def chunks(pairs, budget: int) -> List[np.ndarray]:
+    """The pairs' indices cut into chunks for the reference: sorted by
+    rows and then by width, each chunk as long as its n x (widest + 1)
+    stays within ``budget`` (a wider pair alone); the widest is the
+    longest sequence of the chunk, rows or columns, as ``dp.align`` pads
+    every pair of a call to it."""
+    rows = np.array([len(y) - 1 for y, _ in pairs], np.int64)
+    cols = np.array([len(x) - 1 for _, x in pairs], np.int64)
+    order = np.lexsort((cols, rows))
+    width = np.maximum(rows, cols)[order].tolist()
+    out, start, widest = [], 0, 0
+    for k, w in enumerate(width):
+        if k > start and (k - start + 1) * (max(widest, w) + 1) > budget:
+            out.append(order[start:k])
+            start, widest = k, 0
+        widest = max(widest, w)
+    out.append(order[start:])
+    return out
+
+
 def reference_answers(cell: Cell, pool, subst, device: str,
                       bits: int = 32) -> List[np.ndarray]:
-    """The plain reference over every request of the pool, in one pass."""
+    """The plain reference over every request of the pool: one
+    ``dp.align`` call a chunk of at most ``REFERENCE_ELEMENTS``
+    (``chunks``), the answers in input order."""
     cfg = cell.config
     flat = [p for pairs in pool for p in pairs]
-    out = dp.align(flat, subst, algorithm=cfg["algorithm"], gapo=cfg["gapo"],
-                   gape=cfg["gape"], device=device, bits=bits)
+    out = np.zeros((len(flat), 3), np.int64)
+    for idx in chunks(flat, REFERENCE_ELEMENTS):
+        out[idx] = dp.align([flat[b] for b in idx], subst,
+                            algorithm=cfg["algorithm"], gapo=cfg["gapo"],
+                            gape=cfg["gape"], device=device, bits=bits)
     sizes = np.cumsum([len(pairs) for pairs in pool])[:-1]
     return np.split(out, sizes)
 

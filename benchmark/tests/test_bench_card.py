@@ -1,6 +1,6 @@
-"""Each real cell through ``benchmark/run.py`` on the card, briefly, untraced
-and traced: ``python -m pytest benchmark/tests -m card`` on a machine with
-the card. Skips itself without one."""
+"""Each cell of BENCHMARK.json through ``benchmark/run.py`` on the card,
+briefly, untraced and traced: ``python -m pytest benchmark/tests -m card``
+on a machine with the card. Skips itself without one."""
 
 import json
 import subprocess
@@ -8,10 +8,9 @@ import sys
 
 import pytest
 
-from conftest import ROOT
+from conftest import ROOT, workloads
 
-CELLS = ["upstream_nw_lg.pg1", "blastp_sw_ag.allvsall20",
-         "upstream_nw_lg.release"]
+CELLS = [w["name"] for w in workloads()]
 
 
 @pytest.mark.card

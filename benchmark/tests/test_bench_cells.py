@@ -10,10 +10,9 @@ import sys
 import pytest
 
 from benchmark import harness
-from conftest import ROOT, tiny_name
+from conftest import ROOT, THREE, tiny_name, tiny_of, workloads
 
-CELLS = ["upstream_nw_lg.pg1", "blastp_sw_ag.allvsall20",
-         "upstream_nw_lg.release"]
+CELLS = [w["name"] for w in workloads()]
 SEED = 2 ** 31 + 977
 
 
@@ -23,8 +22,25 @@ def _declared(bench, workload, group):
 
 
 def test_cells_are_the_issue_s_three(bench):
-    assert [w["name"] for w in bench["workloads"]] == CELLS
-    assert {w["chips"] for w in bench["workloads"]} == {1}
+    """The first benchmark's three cells stay; of all the cells at most a
+    quarter, rounded down, ask for four chips, and one always may."""
+    names = [w["name"] for w in bench["workloads"]]
+    assert set(THREE) <= set(names) and len(set(names)) == len(names)
+    chips = [w["chips"] for w in bench["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(chips) // 4)
+
+
+def test_every_cell_has_a_tiny_twin(bench):
+    """Each cell's traffic file has a ``"tiny"`` key, or the cell is one
+    of the three whose twins ``conftest.TINY_TRAFFIC`` holds."""
+    missing = []
+    for w in bench["workloads"]:
+        with open(os.path.join(ROOT, "benchmark", "traffic",
+                               f"{w['traffic']}.json")) as f:
+            if tiny_of(w["traffic"], json.load(f)) is None:
+                missing.append(w["name"])
+    assert not missing, f"cells with no tiny twin: {missing}"
 
 
 @pytest.mark.parametrize("trace", [0, 1])
@@ -88,7 +104,7 @@ def test_negative_and_huge_seeds(tiny_root):
 
 def test_run_py_refuses_without_a_card():
     out = subprocess.run(
-        [sys.executable, "benchmark/run.py", "--workload", CELLS[0],
+        [sys.executable, "benchmark/run.py", "--workload", THREE[0],
          "--seed", str(SEED), "--seconds", "1", "--trace", "0"],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
@@ -105,14 +121,14 @@ def test_run_py_refuses_without_the_program(tmp_path):
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
     shutil.copytree(os.path.join(ROOT, "benchmark"), tmp_path / "benchmark")
     out = subprocess.run(
-        [sys.executable, "benchmark/run.py", "--workload", CELLS[2],
+        [sys.executable, "benchmark/run.py", "--workload", THREE[2],
          "--seed", "1", "--seconds", "1", "--trace", "0"],
         cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and out.stdout == ""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", "from benchmark import harness; "
-         f"harness.run_cell({CELLS[2]!r}, 1, 0.1, False, device='cpu')"],
+         f"harness.run_cell({THREE[2]!r}, 1, 0.1, False, device='cpu')"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and out.stdout == ""
     assert "No module named 'gpuseqalign_tpu_torch'" in out.stderr

@@ -151,3 +151,65 @@ def test_matrix_is_blosum62_in_both_configurations():
     idx = {c: k for k, c in enumerate(a["letters"])}
     assert m[idx["W"], idx["W"]] == 11 and m[idx["C"], idx["C"]] == 9
     assert m[idx["A"], idx["A"]] == 4 and m[idx["W"], idx["C"]] == -2
+
+
+@pytest.mark.parametrize("bits", [32, 16, 8])
+@pytest.mark.parametrize("algorithm", SPECS)
+def test_chunked_reference_equals_one_call(monkeypatch, algorithm, bits):
+    """``harness.reference_answers`` in chunks (a budget that forces many)
+    gives what one ``dp.align`` over the whole pool gives, in input order."""
+    from benchmark import harness
+
+    go, ge = GAPS[algorithm]
+    cfg = dict(_config(), algorithm=algorithm, gapo=go, gape=ge)
+    cell = type("Cell", (), {"config": cfg})()
+    # Three requests of mixed widths and heights, one pair wider than the
+    # budget.
+    wide = (_pairs(25, 1, 3, 4)[0][0], _pairs(26, 1, 700, 701)[0][1])
+    pool = [_pairs(21, 17, 1, 90),
+            _pairs(22, 16, 1, 30) + _pairs(24, 1, 5, 6) + [wide],
+            _pairs(23, 9, 40, 160)]
+    flat = [p for pairs in pool for p in pairs]
+    assert len(flat) >= 40
+    budget = 600
+    n_chunks = len(harness.chunks(flat, budget))
+    assert n_chunks >= 5
+    calls = []
+    align = dp.align
+    monkeypatch.setattr(dp, "align", lambda pairs, *a, **k: calls.append(
+        len(pairs)) or align(pairs, *a, **k))
+    monkeypatch.setattr(harness, "REFERENCE_ELEMENTS", budget)
+    got = harness.reference_answers(cell, pool, SUBST, "cpu", bits=bits)
+    assert len(calls) == n_chunks and sum(calls) == len(flat)
+    want = align(flat, SUBST, algorithm=algorithm, gapo=go, gape=ge,
+                 bits=bits)
+    assert [len(a) for a in got] == [len(p) for p in pool]
+    assert (np.concatenate(got) == want).all()
+
+
+def test_chunks_cover_every_pair_once_within_the_budget():
+    from benchmark import harness
+
+    pairs = _pairs(31, 60, 1, 200)
+    budget = 2000
+    parts = harness.chunks(pairs, budget)
+    idx = np.concatenate(parts)
+    assert sorted(idx.tolist()) == list(range(len(pairs)))
+    for part in parts:
+        widest = max(max(len(pairs[b][0]), len(pairs[b][1])) - 1
+                     for b in part)
+        assert len(part) == 1 or len(part) * (widest + 1) <= budget
+
+
+@pytest.mark.parametrize("cell", ["upstream_nw_lg.pg1",
+                                  "blastp_sw_ag.allvsall20",
+                                  "upstream_nw_lg.release"])
+def test_the_first_cells_reference_is_one_call(cell):
+    """At their real sizes the first three cells' pools fit one chunk: the
+    reference makes the one ``dp.align`` call it made before chunks."""
+    from benchmark import generate, harness
+
+    c = harness.Cell(cell, ROOT)
+    pool = generate.make_pool(c.traffic, c.config, 1)
+    flat = [p for pairs in pool for p in pairs]
+    assert len(harness.chunks(flat, harness.REFERENCE_ELEMENTS)) == 1
