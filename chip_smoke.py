@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of gpuseqalign_tpu_torch (the PyTorch/CUDA port) on one card.
 
-    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant,probe,tools,scaling]
+    python3 chip_smoke.py [--phases build,kernels,cli,full,throughput,giant,probe,tools,scaling,dbsearch]
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (CUDA
 toolkit with nvcc; the kernels are built from the checkout's sources).
@@ -149,6 +149,22 @@ Phases, each of which makes the script exit non-zero if it fails:
                 at D = 1 and 4 beside the call model, and a stream at
                 D = 4 against one call a pair; every row from a fresh
                 subprocess, naming what it ran on, logged
+ 11. dbsearch   the database search (parallel/dbsearch.py) on the traffic
+                of the benchmark's cell swissprot_search.dbsearch (its
+                five queries against its 65 536 subjects, one fixed seed)
+                and on a database of homologs (each query's own copy,
+                copies with 10% and 30% of the residues replaced, a block
+                deleted, a block inserted, among random subjects; a
+                464-residue query and a 7000-residue one, whose self score
+                passes 32 767): load_db once (DB_LOADS + 1), every query
+                through search_db with the launch counters zeroed just
+                before, K5 and K6 launched as fill_route gives each bucket,
+                SEARCH_H2D_BYTES the queries' bytes and the matrix once;
+                then every bucket of the database at its full size, for
+                every query, through tiny_scores (K6) and mlsp_fill_batch
+                (K5) at row stride 0 against scores_batch_plain on the
+                same inputs, and the search's answers for the bucket's
+                subjects against the same, bit-exact
 
 With every phase run (the default), the line before the last is a JSON
 object describing every kernel and the last line is the contract line
@@ -173,7 +189,7 @@ RESRC = os.path.join(HERE, "resrc")
 OUT = os.path.join(HERE, "logs", "chip_smoke")
 SPECS = ("nw_lg", "nw_ag", "sw_lg", "sw_ag")
 PHASES = ("build", "kernels", "cli", "full", "throughput", "giant",
-          "probe", "tools", "scaling")
+          "probe", "tools", "scaling", "dbsearch")
 GAPO = -11
 GAPE = {"nw_lg": 0, "sw_lg": 0, "nw_ag": -2, "sw_ag": -2}
 
@@ -220,6 +236,13 @@ BANDED_CASES = (
     (5, 300, 128, 128, 256, 2, 1),      # 5 x 300
     (25600, 300, 128, 128, 384, 1, 200),  # tall: one call of 200 strips
 )
+# The database search's phase: the benchmark cell whose traffic it runs,
+# a seed of its own, and the homolog database's queries (residues) and
+# random subjects (the cell's first lengths).
+DBSEARCH_CELL = ("swissprot_search", "dbsearch")
+DBSEARCH_SEED = 3000000419
+DBSEARCH_HOMOLOG_QUERIES = (464, 7000)
+DBSEARCH_HOMOLOG_RANDOM = 1000
 
 
 
@@ -1960,6 +1983,162 @@ def giant_stream_two_bands(torch, subst_np, want) -> dict:
     return out
 
 
+def bench_module(name: str):
+    """A module of the benchmark (``generate``, ``reference/dp``), loaded
+    from its file; both import numpy and torch only."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_" + name.replace("/", "_"),
+        os.path.join(HERE, "benchmark", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def homolog_db(rng, queries, subjects):
+    """Random subjects with, for each query, its own copy, copies with 10%
+    and 30% of the residues replaced (residues 0-19), a copy with 25
+    residues deleted and one with 40 inserted, a third of the way in."""
+    import numpy as np
+
+    out = list(subjects)
+    for q in queries:
+        out.append(q.copy())
+        for share in (0.1, 0.3):
+            c = q.copy()
+            hit = np.flatnonzero(rng.random(len(q) - 1) < share) + 1
+            c[hit] = rng.integers(0, 20, len(hit))
+            out.append(c)
+        cut = len(q) // 3
+        out.append(np.concatenate([q[:cut], q[cut + 25:]]))
+        out.append(np.concatenate(
+            [q[:cut], rng.integers(0, 20, 40), q[cut:]]).astype(np.int32))
+    return out
+
+
+def phase_dbsearch(torch) -> dict:
+    """Phase 11 (the module docstring): the database search on the cell's
+    traffic and on a database of homologs. Returns, for each database,
+    its buckets, launches, bytes sent and times."""
+    import numpy as np
+
+    from gpuseqalign_tpu_torch.core.types import AlignSpec
+    from gpuseqalign_tpu_torch.ops import batch_cuda
+    from gpuseqalign_tpu_torch.ops.batch_plain import scores_batch_plain
+    from gpuseqalign_tpu_torch.parallel import dbsearch, load_db, search_db
+    from gpuseqalign_tpu_torch.parallel.batch import fill_route, padded
+
+    config, traffic = DBSEARCH_CELL
+    with open(os.path.join(HERE, "benchmark", "configs",
+                           config + ".json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(HERE, "benchmark", "traffic",
+                           traffic + ".json")) as f:
+        tr = json.load(f)
+    pool = bench_module("generate").make_pool(tr, cfg, DBSEARCH_SEED)
+    subst_np = bench_module("reference/dp").matrix(cfg)
+    spec = AlignSpec.from_name(cfg["algorithm"])
+    gaps = (cfg["gapo"], cfg["gape"])
+    kw = dict(kind=spec.kind.value, gap=spec.gap.value)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    subst = torch.from_numpy(subst_np).to(dev)
+
+    cell_subjects = [x for _, x in pool[0]]
+    rng = np.random.default_rng(DBSEARCH_SEED)
+    hq = [np.concatenate([[0], rng.integers(0, 20, n)]).astype(np.int32)
+          for n in DBSEARCH_HOMOLOG_QUERIES]
+    dbs = (("cell", [p[0][0] for p in pool], cell_subjects),
+           ("homologs", hq, homolog_db(
+               rng, hq, cell_subjects[:DBSEARCH_HOMOLOG_RANDOM])))
+    out = {}
+    for label, queries, subjects in dbs:
+        loads = dbsearch.DB_LOADS
+        t0 = time.perf_counter()
+        db = load_db(subjects, device=dev)
+        load_s = time.perf_counter() - t0
+        if dbsearch.DB_LOADS != loads + 1:
+            fail(f"dbsearch {label}: DB_LOADS moved by "
+                 f"{dbsearch.DB_LOADS - loads}, not 1")
+        sent = dbsearch.SEARCH_H2D_BYTES
+        batch_cuda.FILL_LAUNCHES = batch_cuda.TINY_LAUNCHES = 0
+        t0 = time.perf_counter()
+        results = [search_db(spec, subst_np, q, db, *gaps) for q in queries]
+        search_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+        launched = {"fill": batch_cuda.FILL_LAUNCHES,
+                    "tiny": batch_cuda.TINY_LAUNCHES}
+        want = {"fill": 0, "tiny": 0}
+        want_bytes = subst_np.nbytes
+        for q in queries:
+            rows_p = padded(len(q) - 1, "pow2")
+            want_bytes += 4 * (2 + rows_p)
+            for _, adjcs in db.buckets:
+                want[fill_route(rows_p, len(adjcs), sms)] += 1
+        if launched != want or min(launched.values()) <= 0:
+            fail(f"dbsearch {label}: launches (K5, K6) {launched}, the "
+                 f"route gives {want}; both must run")
+        if dbsearch.SEARCH_H2D_BYTES - sent != want_bytes:
+            fail(f"dbsearch {label}: the searches sent "
+                 f"{dbsearch.SEARCH_H2D_BYTES - sent} bytes to the card, "
+                 f"not the queries' and the matrix's {want_bytes}")
+        # Each bucketed subject's input index, in bucket order.
+        inv = db.inv.cpu().numpy()
+        live = np.setdiff1d(np.arange(len(subjects)), db.empty)
+        order = live[np.argsort(inv[live], kind="stable")]
+        t0 = time.perf_counter()
+        for q, res in zip(queries, results):
+            answers = np.stack([res.costs, res.best_i, res.best_j])
+            rows_p = padded(len(q) - 1, "pow2")
+            ys = torch.zeros((1, 1 + rows_p), dtype=torch.int32)
+            ys[0, :len(q)] = torch.from_numpy(q)
+            ys = ys.to(dev)
+            adjrs = torch.tensor([len(q)], dtype=torch.int32, device=dev)
+            start = 0
+            for xs, adjcs in db.buckets:
+                b, cols_p = len(adjcs), xs.shape[1] - 1
+                plain = torch.stack(scores_batch_plain(
+                    subst, ys, xs, adjrs, adjcs, *gaps, **kw)).cpu()
+                tiny = torch.stack(batch_cuda.tiny_scores(
+                    subst, ys, xs, *gaps, adjrs, adjcs, **kw)).cpu()
+                got = batch_cuda.mlsp_fill_batch(
+                    subst, ys, xs, *gaps, adjrs, adjcs,
+                    tile_h=math.gcd(rows_p, 128),
+                    tile_w=math.gcd(cols_p, 512), **kw)
+                fill = torch.cat([got["cost"].view(1, -1),
+                                  got["best"][:, 1:].t()]).cpu()
+                mine = torch.from_numpy(answers[:, order[start:start + b]])
+                for name, t in (("mlsp_tiny", tiny), ("mlsp_fill_batch",
+                                                      fill),
+                                ("search_db", mine)):
+                    if not torch.equal(t, plain):
+                        fail(f"dbsearch {label}: {name} != "
+                             f"scores_batch_plain, query {len(q) - 1} "
+                             f"residues, bucket {rows_p}x{cols_p} of {b}")
+                start += b
+        check_s = time.perf_counter() - t0
+        costs = np.stack([r.costs for r in results])
+        out[label] = dict(
+            subjects=len(subjects), load_s=load_s, search_ms=search_ms,
+            check_s=check_s, launches=launched,
+            h2d_bytes=dbsearch.SEARCH_H2D_BYTES - sent,
+            buckets=[(xs.shape[1] - 1, len(adjcs)) for xs, adjcs in
+                     db.buckets], max_cost=int(costs.max()))
+        log(f"phase dbsearch {label}: {len(subjects)} subjects, buckets "
+            f"(cols_p, subjects) {out[label]['buckets']}, load "
+            f"{load_s:.3f} s, {len(queries)} searches "
+            f"({', '.join(str(len(q) - 1) for q in queries)} residues) "
+            f"{search_ms:.3f} ms each (first with the matrix), launches "
+            f"{launched}, {out[label]['h2d_bytes']} B to the card; every "
+            f"bucket through mlsp_tiny, mlsp_fill_batch and search_db "
+            f"bit-exact against scores_batch_plain ({check_s:.1f} s); "
+            f"largest cost {out[label]['max_cost']}")
+    if out["homologs"]["max_cost"] <= 32767:
+        fail(f"dbsearch homologs: largest cost {out['homologs']['max_cost']}"
+             " does not pass 16 bits")
+    return out
+
+
 def phase_scaling() -> dict:
     """bench.scaling_report at its full sizes on the card (every row from
     a fresh subprocess, each naming what it ran on), its document written
@@ -2926,6 +3105,12 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_scaling()
         times["scaling"] = time.perf_counter() - t0
+
+    # 11. the database search, on the cell's traffic and on homologs
+    if "dbsearch" in phases:
+        t0 = time.perf_counter()
+        phase_dbsearch(torch)
+        times["dbsearch"] = time.perf_counter() - t0
 
     log("phase times s: " + json.dumps({k: round(v, 2)
                                           for k, v in times.items()}))

@@ -14,9 +14,12 @@ warp a pair sweeping its row strips in turn.
 On a CUDA tensor each launches its kernel on the current stream or raises;
 it uses the plain version only for tensors that lie on the CPU. Both take
 a stacked bucket: ``ys`` (B, 1+rows_p), ``xs`` (B, 1+cols_p), ``adjrs`` and
-``adjcs`` (B,), all int32 on one device. The kernels leave the NW cost of
-a pair with ``adjr < 2`` or ``adjc < 2`` (an empty sequence: the cost lies
-on the edge) to the caller; the plain versions compute it.
+``adjcs`` (B,), all int32 on one device. ``ys`` may instead be one query,
+(1, 1+rows_p) with ``adjrs`` (1,), that every pair of the bucket reads
+(a database search): the kernels then read its row at a row stride of 0,
+and nothing is copied per pair. The kernels leave the NW cost of a pair
+with ``adjr < 2`` or ``adjc < 2`` (an empty sequence: the cost lies on the
+edge) to the caller; the plain versions compute it.
 
 ``FILL_LAUNCHES`` and ``TINY_LAUNCHES`` count kernel launches, so a run can
 show that its main path went through the kernels.
@@ -51,19 +54,33 @@ def _check(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if subst.dim() != 2 or subst.shape[0] != subst.shape[1]:
         raise ValueError(f"subst must be square, got {tuple(subst.shape)}")
-    n = ys.shape[0] if ys.dim() == 2 else -1
-    if (ys.dim() != 2 or xs.dim() != 2 or xs.shape[0] != n or n < 1
+    n = xs.shape[0] if xs.dim() == 2 else -1
+    if (ys.dim() != 2 or xs.dim() != 2 or ys.shape[0] not in (1, n) or n < 1
             or ys.shape[1] < 2 or xs.shape[1] < 2):
         raise ValueError(f"ys {tuple(ys.shape)} and xs {tuple(xs.shape)} "
-                         "must be (B, 1+rows_p) and (B, 1+cols_p), B >= 1")
-    if adjrs.shape != (n,) or adjcs.shape != (n,):
-        raise ValueError(f"adjrs and adjcs must be ({n},)")
+                         "must be (B, 1+rows_p) or one query (1, 1+rows_p), "
+                         "and (B, 1+cols_p), B >= 1")
+    if adjrs.shape != (ys.shape[0],) or adjcs.shape != (n,):
+        raise ValueError(f"adjrs must be ({ys.shape[0]},) as ys's rows, "
+                         f"adjcs ({n},)")
     if ys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device: {ys.device}")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _query_strides(ys: torch.Tensor, n: int) -> Tuple[int, int]:
+    """(ys's row stride, adjrs's stride) in elements for the kernels: a
+    row a pair, or one query for all ``n`` pairs (0, 0)."""
+    return (ys.shape[1], 1) if ys.shape[0] == n else (0, 0)
+
+
+def _from(t: torch.Tensor, stride: int, g0: int) -> int:
+    """The address of pair ``g0``'s element of ``t`` at a row stride of
+    ``stride`` elements."""
+    return t.data_ptr() + g0 * stride * t.element_size()
 
 
 def _stream(dev: torch.device) -> int:
@@ -96,7 +113,8 @@ def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 
     lib = strip_cuda.load_lib()
     dev = ys.device
-    n = ys.shape[0]
+    n = xs.shape[0]
+    ystride, rstride = _query_strides(ys, n)
     is_sw = kind == "sw"
     affine = gap == "affine"
     trows, tcols = rows_p // tile_h, cols_p // tile_w
@@ -128,9 +146,9 @@ def mlsp_fill_batch(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
             rc = lib.strip_fill_batch(
                 int(is_sw), int(affine), sched.lane_rows, int(headers),
                 _ptr(subst), subst.shape[0],
-                _ptr(ys[g0:]), _ptr(xs[g0:]), gapo, gape,
-                _ptr(adjrs[g0:]), _ptr(adjcs[g0:]),
-                tile_h, tile_w, trows, tcols, g,
+                _from(ys, ystride, g0), _ptr(xs[g0:]), gapo, gape,
+                _from(adjrs, rstride, g0), _ptr(adjcs[g0:]),
+                tile_h, tile_w, trows, tcols, g, ystride, rstride,
                 _ptr(out.get("hrows")), _ptr(out.get("hcols")),
                 _ptr(out.get("frows")), _ptr(out.get("ecols")),
                 _ptr(tbest), _ptr(cost[g0:]), _ptr(rows), _ptr(prog), stream,
@@ -168,7 +186,8 @@ def tiny_scores(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 
     lib = tiny_cuda.load_lib()
     dev = ys.device
-    n = ys.shape[0]
+    n = xs.shape[0]
+    ystride, rstride = _query_strides(ys, n)
     rows_p, cols_p = ys.shape[1] - 1, xs.shape[1] - 1
     is_sw = kind == "sw"
     affine = gap == "affine"
@@ -186,9 +205,10 @@ def tiny_scores(subst: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
             g = min(group, n - g0)
             rc = lib.mlsp_tiny(
                 int(is_sw), int(affine), warps, _ptr(subst), S,
-                _ptr(ys[g0:]), _ptr(xs[g0:]), gapo, gape,
-                _ptr(adjrs[g0:]), _ptr(adjcs[g0:]), rows_p, cols_p, g,
-                _ptr(cost[g0:]), _ptr(best[g0:]), _ptr(scratch), stream,
+                _from(ys, ystride, g0), _ptr(xs[g0:]), gapo, gape,
+                _from(adjrs, rstride, g0), _ptr(adjcs[g0:]), rows_p, cols_p,
+                g, ystride, rstride, _ptr(cost[g0:]), _ptr(best[g0:]),
+                _ptr(scratch), stream,
             )
             if rc != 0:
                 raise RuntimeError(f"mlsp_tiny launch failed: cudaError {rc}")

@@ -12,6 +12,8 @@ loop over rows. It is the plain version of the tiny-pair kernel
 run pair by pair, with the cost captured.
 
 Both run on whatever device their tensors lie on; every output is int32.
+Like the kernels, both take ``ys`` (B, 1+rows_p) with ``adjrs`` (B,), or
+one query (1, 1+rows_p) with ``adjrs`` (1,) that every pair reads.
 """
 
 from __future__ import annotations
@@ -31,14 +33,15 @@ def scores_batch_plain(subst: torch.Tensor, ys: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cost-only alignment of a stacked bucket.
 
-    ys: (B, 1+rows_p), xs: (B, 1+cols_p) zero-padded, header-prefixed;
-    adjrs/adjcs: (B,) true lengths with the header. Returns (costs,
+    ys: (B, 1+rows_p), or one query (1, 1+rows_p) for every pair; xs:
+    (B, 1+cols_p); zero-padded, header-prefixed. adjrs (as ys's rows) and
+    adjcs (B,): true lengths with the header. Returns (costs,
     best_i, best_j), each (B,) int32: NW the cost at (adjr-1, adjc-1) and
     best 0; SW the row-major first maximum over live cells (i < adjr,
     j < adjc), (0, 0, 0) if no cell is > 0.
     """
     dev = ys.device
-    n, rows_p = ys.shape[0], ys.shape[1] - 1
+    n, rows_p = xs.shape[0], ys.shape[1] - 1
     width = xs.shape[1]
     is_sw = kind == "sw"
     i32 = dict(dtype=torch.int32, device=dev)
@@ -50,7 +53,7 @@ def scores_batch_plain(subst: torch.Tensor, ys: torch.Tensor,
     S = subst.shape[0]
     xl = xs.long()
     yl = ys.long() * S
-    adjr = adjrs.long()
+    adjr = adjrs.long().expand(n)
     adjc_1 = (adjcs.long() - 1).view(n, 1)
     lane_valid = offs.view(1, width) < adjcs.view(n, 1)
     col0 = edge_col(torch.arange(rows_p + 1, **i32), gapo, gape, kind, gap)
@@ -87,7 +90,11 @@ def mlsp_fill_batch_plain(subst: torch.Tensor, ys: torch.Tensor,
                           ) -> Dict[str, torch.Tensor]:
     """``mlsp_fill_plain`` over the pairs of a stacked bucket, outputs
     stacked on a leading pair axis, plus ``cost`` (B,): NW the cell
-    (adjr-1, adjc-1), SW the best value (``best`` (B, 3))."""
+    (adjr-1, adjc-1), SW the best value (``best`` (B, 3)). ``ys`` and
+    ``adjrs`` may hold one query for every pair, as in
+    ``scores_batch_plain``."""
+    n = xs.shape[0]
+    ys, adjrs = ys.expand(n, -1), adjrs.expand(n)
     outs = []
     for b, (r, c) in enumerate(zip(adjrs.tolist(), adjcs.tolist())):
         outs.append(mlsp_fill_plain(subst, ys[b], xs[b], gapo, gape, r, c,

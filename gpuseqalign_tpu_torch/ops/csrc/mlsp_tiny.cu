@@ -75,14 +75,18 @@ constexpr size_t kSmemLimit = 48 * 1024;
 
 struct Params {
   const int* subst;  // (S, S)
-  const int* ys;     // (npairs, 1 + rows_p), index 0 of a row is the header
+  const int* ys;     // pair b's row at ys + b * ys_stride, 1 + rows_p
+                     // words, index 0 the header
   const int* xs;     // (npairs, 1 + cols_p)
-  const int* adjrs;  // (npairs,) true lengths with the header
+  const int* adjrs;  // pair b's true rows with the header at
+                     // adjrs[b * adjrs_stride]
   const int* adjcs;  // (npairs,)
   int* cost;         // (npairs,)
   int* best;         // SW: (npairs, 3)
   int* scratch;      // null, or (npairs, carry_words) carry rows
   int S, gapo, gape, rows_p, cols_p, npairs, wpb;
+  int ys_stride;     // 1 + rows_p (a row a pair), or 0 (one query for all)
+  int adjrs_stride;  // 1, or 0 with ys_stride 0
 };
 
 __host__ __device__ size_t carry_words(int cols_p, bool affine) {
@@ -185,7 +189,7 @@ __device__ __forceinline__ void fill_pair(const Params& p,
                                           const int* s_subst, int* ring,
                                           int* top, int b, int R, int C,
                                           int ns, int lane) {
-  const int* y = p.ys + (size_t)b * (p.rows_p + 1);
+  const int* y = p.ys + (size_t)b * p.ys_stride;
   const int* x = p.xs + (size_t)b * (p.cols_p + 1);
   int* ftop = top + (p.cols_p + 1);
   int lv = 0, li = 0, lj = 0;  // SW: the lane's best so far
@@ -325,7 +329,7 @@ mlsp_tiny_kernel(Params p) {
   const size_t cw = carry_words(p.cols_p, AFFINE);
   int* top = p.scratch ? p.scratch + (size_t)b * cw
                        : smem + p.S * p.S + p.wpb * kRing + warp * cw;
-  const int R = min(p.adjrs[b] - 1, p.rows_p);
+  const int R = min(p.adjrs[(size_t)b * p.adjrs_stride] - 1, p.rows_p);
   const int C = min(p.adjcs[b] - 1, p.cols_p);
   if (R < 1 || C < 1) return;
   const int ns = (R + 32 * kLaneRows - 1) / (32 * kLaneRows);
@@ -357,7 +361,10 @@ size_t scratch_words(int S, int wpb, int cols_p, bool affine) {
 extern "C" {
 
 // Fill npairs pairs of one padded shape in one launch: one warp a pair,
-// wpb warps a block, strips of at most 32*kLaneRows rows.
+// wpb warps a block, strips of at most 32*kLaneRows rows. Pair b's row
+// letters are ys[b * ys_stride ...] and its rows adjrs[b * adjrs_stride]:
+// strides 1 + rows_p and 1 for a stacked bucket, 0 and 0 for one query
+// against every pair (a database search).
 // scratch: null, or npairs carry rows (scratch_words ints each) where a
 // block's do not fit in shared memory. cost (npairs,) receives each
 // pair's cost, for SW best (npairs, 3) its best cell. Returns
@@ -366,14 +373,17 @@ extern "C" {
 int mlsp_tiny(int sw, int affine, int wpb, const int* subst,
               int S, const int* ys, const int* xs, int gapo, int gape,
               const int* adjrs, const int* adjcs, int rows_p, int cols_p,
-              int npairs, int* cost, int* best, int* scratch, void* stream) {
+              int npairs, int ys_stride, int adjrs_stride, int* cost,
+              int* best, int* scratch, void* stream) {
   if (rows_p < 1 || cols_p < 1 || npairs < 1 || S < 1 || wpb < 1 ||
       wpb > kMaxWarps || !cost || (sw && !best) ||
+      (ys_stride != 0 && ys_stride < rows_p + 1) || adjrs_stride < 0 ||
       smem_words(S, wpb, cols_p, affine, false) * sizeof(int) > kSmemLimit ||
       (!scratch && scratch_words(S, wpb, cols_p, affine) > 0))
     return (int)cudaErrorInvalidValue;
-  Params p{subst, ys,   xs,   adjrs,  adjcs,  cost,   best,
-           scratch, S,  gapo, gape, rows_p, cols_p, npairs, wpb};
+  Params p{subst,   ys, xs,   adjrs, adjcs,  cost,   best,
+           scratch, S,  gapo, gape,  rows_p, cols_p, npairs,
+           wpb,     ys_stride, adjrs_stride};
   cudaStream_t st = (cudaStream_t)stream;
   if (sw) return affine ? launch<true, true>(p, st) : launch<true, false>(p, st);
   return affine ? launch<false, true>(p, st) : launch<false, false>(p, st);

@@ -123,10 +123,12 @@ constexpr int kStageCols = 64;
 
 struct Args {
   const int* subst;  // (S, S)
-  const int* y;      // nmat x (1 + rows): index 0 is the header element
+  const int* y;      // matrix m's rows at y + m * ystride, 1 + rows words:
+                     // index 0 is the header element
   const int* x;      // nmat x (1 + cols)
-  const int* adjrs;  // (nmat,) true lengths, or null: adjr/adjc below
-  const int* adjcs;
+  const int* adjrs;  // matrix m's true rows at adjrs[m * rstride], or
+                     // null: adjr/adjc below
+  const int* adjcs;  // (nmat,)
   int* hrows;   // headers: nmat x (nhrows, 1 + cols)
   int* hcols;   // headers: nmat x (rows, hstride)
   int* frows;   // affine
@@ -144,6 +146,8 @@ struct Args {
   int hstride;  // words a header column row: tcols (batch) or tcols + 1
   int ns;       // strips a matrix
   int wpb;      // warps a block
+  int ystride;  // 1 + rows (a row a matrix), or 0 (one for every matrix)
+  int rstride;  // 1, or 0 with ystride 0
 };
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -181,7 +185,7 @@ template <int K, bool SW, bool AFFINE, bool HDR, bool DENSE, bool BODYOFF>
 __device__ __forceinline__ void strip(const Args& a, const int* s_subst,
                                       int* ring, int* stage, int m, int s,
                                       int lane) {
-  const int adjr = a.adjrs ? a.adjrs[m] : a.adjr;
+  const int adjr = a.adjrs ? a.adjrs[(size_t)m * a.rstride] : a.adjr;
   const int adjc = a.adjcs ? a.adjcs[m] : a.adjc;
   const int R = HDR ? a.rows : adjr - 1;  // DP rows filled
   const int C = HDR ? a.cols : adjc - 1;  // DP columns filled
@@ -190,7 +194,7 @@ __device__ __forceinline__ void strip(const Args& a, const int* s_subst,
   if (R < 1 || C < 1 || r0 >= R) return;
   const int nr = min(SH, R - r0);
   const size_t width = (size_t)a.cols + 1;
-  const int* y = a.y + (size_t)m * (a.rows + 1);
+  const int* y = a.y + (size_t)m * a.ystride;
   const int* x = a.x + (size_t)m * width;
   int* hrows = nullptr;
   int* hcols = nullptr;
@@ -656,15 +660,20 @@ int strip_fill_banded(int sw, int affine, int K, const int* subst, int S,
 // H[adjr-1, adjc-1] goes to cost[pair] (SW: not written); tbest (npairs,
 // ns, 3), zeroed, receives each strip's SW best. prog: 1 + npairs*ns
 // ints, zeroed; carry: (1 + affine) * npairs * ns * (1 + cols_p) ints, or
-// null with headers where 32*K is a multiple of th.
+// null with headers where 32*K is a multiple of th. Pair b's row letters
+// are ys[b * ys_stride ...] and its rows adjrs[b * adjrs_stride]: strides
+// 1 + rows_p and 1 for a stacked bucket, 0 and 0 for one query against
+// every pair (a database search).
 int strip_fill_batch(int sw, int affine, int K, int headers,
                      const int* subst, int S, const int* ys, const int* xs,
                      int gapo, int gape, const int* adjrs, const int* adjcs,
                      int th, int tw, int trows, int tcols, int npairs,
+                     int ys_stride, int adjrs_stride,
                      int* hrows, int* hcols, int* frows, int* ecols,
                      int* tbest, int* cost, int* carry, int* prog,
                      void* stream) {
   if (trows < 1 || tcols < 1 || npairs < 1 || !prog || !adjrs || !adjcs ||
+      (ys_stride != 0 && ys_stride < trows * th + 1) || adjrs_stride < 0 ||
       !valid_sched(K, th, tw, S, kWarps, false) ||
       (!carry && (!headers || (32 * K) % th)) || (sw && !tbest) ||
       (!sw && !cost) ||
@@ -688,6 +697,8 @@ int strip_fill_batch(int sw, int affine, int K, int headers,
   a.nhrows = trows;
   a.hstride = tcols;
   a.ns = (a.rows + 32 * K - 1) / (32 * K);
+  a.ystride = ys_stride;
+  a.rstride = adjrs_stride;
   const long long items = (long long)npairs * a.ns;
   if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (headers) return dispatch<true, false>(K, sw, affine, a, stream);

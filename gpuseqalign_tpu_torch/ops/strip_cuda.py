@@ -172,6 +172,7 @@ def load_lib() -> ctypes.CDLL:
             i, i, i, i, p, i,          # sw, affine, K, headers, subst, S
             p, p, i, i, p, p,          # ys, xs, gapo, gape, adjrs, adjcs
             i, i, i, i, i,             # th, tw, trows, tcols, npairs
+            i, i,                      # ys_stride, adjrs_stride
             p, p, p, p, p, p,          # hrows, hcols, frows, ecols, tbest, cost
             p, p, p,                   # carry, prog, stream
         ]

@@ -92,6 +92,7 @@ def load_lib() -> ctypes.CDLL:
             i, i, i,                   # sw, affine, warps
             p, i, p, p, i, i,          # subst, S, ys, xs, gapo, gape
             p, p, i, i, i,             # adjrs, adjcs, rows_p, cols_p, npairs
+            i, i,                      # ys_stride, adjrs_stride
             p, p, p, p,                # cost, best, scratch, stream
         ]
         lib.mlsp_tiny.restype = ctypes.c_int

@@ -66,17 +66,29 @@ def fill_route(rows_p: int, npairs: int, sms: Optional[int]) -> str:
     return "tiny"
 
 
-def _degenerate_cost(spec: AlignSpec, adjr: int, adjc: int, gapo: int,
-                     gape: int) -> int:
+def _degenerate_cost(spec: AlignSpec, adjr, adjc, gapo: int,
+                     gape: int) -> np.ndarray:
     """Analytic align_cost of a pair with an empty sequence (adjr < 2 or
     adjc < 2): the whole alignment is one gap run along the header
-    row/col, which the in-kernel bottom-right capture never visits."""
+    row/col, which the in-kernel bottom-right capture never visits.
+    Elementwise over numpy arrays of lengths too (int64)."""
+    n_gap = np.asarray(adjr, np.int64) + np.asarray(adjc, np.int64) - 2
     if spec.kind == AlignKind.SW:
-        return 0
-    n_gap = int(adjr + adjc) - 2
+        return np.zeros_like(n_gap)
     if spec.gap == GapKind.AFFINE:
-        return 0 if n_gap == 0 else gapo + n_gap * gape
+        return np.where(n_gap == 0, 0, gapo + n_gap * gape)
     return n_gap * gapo
+
+
+def check_gaps(spec: AlignSpec, gapo: int, gape: int) -> None:
+    """Raise for an affine spec with a gap cost above 0: the same domain
+    guard as align_pallas_mlsp and the oracle, since the vectorized Gotoh
+    construction requires non-positive gap costs."""
+    if spec.gap == GapKind.AFFINE and (gapo > 0 or gape > 0):
+        raise ValueError(
+            "affine specs require gapo <= 0 and gape <= 0 "
+            f"(got gapo={gapo}, gape={gape})"
+        )
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -100,6 +112,16 @@ def _pad_pow2(n: int, floor: int) -> int:
     return p
 
 
+def padded(n: int, quantum: "int | str") -> int:
+    """A sequence of ``n`` residues (no header) padded as ``bucket_pairs``
+    pads each dimension: to a multiple of ``quantum``, or with
+    quantum="pow2" to the next power of two (floor 256); at least 1."""
+    n = max(n, 1)
+    if quantum == "pow2":
+        return _pad_pow2(n, 256)
+    return _pad_to(n, quantum)
+
+
 def bucket_pairs(
     pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     quantum: "int | str" = 256,
@@ -111,16 +133,7 @@ def bucket_pairs(
     O(log n) buckets instead of one per distinct shape."""
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for idx, (y, x) in enumerate(pairs):
-        if quantum == "pow2":
-            key = (
-                _pad_pow2(max(len(y) - 1, 1), 256),
-                _pad_pow2(max(len(x) - 1, 1), 256),
-            )
-        else:
-            key = (
-                _pad_to(max(len(y) - 1, 1), quantum),
-                _pad_to(max(len(x) - 1, 1), quantum),
-            )
+        key = (padded(len(y) - 1, quantum), padded(len(x) - 1, quantum))
         buckets.setdefault(key, []).append(idx)
     return buckets
 
@@ -172,17 +185,19 @@ def stack_bucket(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
 
 def bucket_scores(spec: AlignSpec, subst: torch.Tensor, ys: torch.Tensor,
                   xs: torch.Tensor, adjrs: torch.Tensor, adjcs: torch.Tensor,
-                  gapo: int, gape: int) -> torch.Tensor:
-    """(3, b) int32 [costs, best_i, best_j] of one stacked bucket of pairs
-    with adjr, adjc >= 2, through the kernel ``fill_route`` picks; the
-    kernel's wrapper call is the span ``batch.<route>``."""
+                  gapo: int, gape: int, flow: str = "batch") -> torch.Tensor:
+    """(3, b) int32 [costs, best_i, best_j] of one stacked bucket of b
+    pairs with adjr, adjc >= 2 (``ys`` and ``adjrs`` a row a pair, or one
+    query for all, as the wrappers take them), through the kernel
+    ``fill_route`` picks; the kernel's wrapper call is the span
+    ``<flow>.<route>``."""
     rows_p, cols_p = ys.shape[1] - 1, xs.shape[1] - 1
     kw = dict(kind=spec.kind.value, gap=spec.gap.value)
     sms = None
     if ys.device.type == "cuda":
         sms = torch.cuda.get_device_properties(ys.device).multi_processor_count
-    if fill_route(rows_p, ys.shape[0], sms) == "fill":
-        with span("batch.fill"):
+    if fill_route(rows_p, xs.shape[0], sms) == "fill":
+        with span(f"{flow}.fill"):
             out = batch_cuda.mlsp_fill_batch(
                 subst, ys, xs, gapo, gape, adjrs, adjcs,
                 tile_h=math.gcd(rows_p, 128), tile_w=math.gcd(cols_p, 512),
@@ -192,7 +207,7 @@ def bucket_scores(spec: AlignSpec, subst: torch.Tensor, ys: torch.Tensor,
                               out["best"][:, 1:].t()])
         return torch.stack([out["cost"], torch.zeros_like(out["cost"]),
                             torch.zeros_like(out["cost"])])
-    with span("batch.tiny"):
+    with span(f"{flow}.tiny"):
         out = batch_cuda.tiny_scores(subst, ys, xs, gapo, gape, adjrs,
                                      adjcs, **kw)
     return torch.stack(out)
@@ -234,13 +249,7 @@ def align_pairs_batched(
                                card; empty elsewhere)
       batch.gather             the wait for the devices, the answers out
     """
-    if spec.gap == GapKind.AFFINE and (gapo > 0 or gape > 0):
-        # Same domain guard as align_pallas_mlsp / the oracle: the
-        # vectorized Gotoh construction requires non-positive gap costs.
-        raise ValueError(
-            "affine specs require gapo <= 0 and gape <= 0 "
-            f"(got gapo={gapo}, gape={gape})"
-        )
+    check_gaps(spec, gapo, gape)
     if mesh is not None and device is not None:
         raise ValueError("pass a mesh or a device, not both")
     if mesh is not None:
